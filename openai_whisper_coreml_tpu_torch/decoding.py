@@ -1,0 +1,478 @@
+"""Greedy decoding, language ID and the logit rules (port of `decoding.py`).
+
+The slice this port serves: greedy decoding (temperature 0) of a batch of
+30 s windows with prompt prefill, the suppress/blank/timestamp logit rules,
+int8 or bf16 cross-KV, no-speech probability, per-sample prompts, and
+language ID. The decode loop is the JAX package's flat loop
+(`two_level=False`): its two-level staging cache works around an XLA-TPU
+layout cost and gives the same tokens, so `two_level` is accepted and has
+no effect here. Beam search, sampling, best_of, the int8 self-attention
+cache and speculative decoding raise NotImplementedError (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import WhisperConfig
+from .models import decoder as dec_mod
+from .tokenizer import LANGUAGES, Tokenizer, get_tokenizer
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Options / results
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodingOptions:
+    task: str = "transcribe"
+    language: Optional[str] = None
+    temperature: float = 0.0
+    sample_len: Optional[int] = None  # default: n_text_ctx // 2
+    best_of: Optional[int] = None
+    beam_size: Optional[int] = None
+    patience: Optional[float] = None
+    length_penalty: Optional[float] = None
+    # previous-context prompt: one shared prompt (str or flat token list), or
+    # a PER-SAMPLE list (one str/token-list/None per batch row)
+    prompt: Optional[Union[str, List[int], List[Union[str, List[int], None]]]] = None
+    prefix: Optional[Union[str, List[int]]] = None  # prefix for this window
+    suppress_tokens: Optional[Union[str, Sequence[int]]] = "-1"
+    suppress_blank: bool = True
+    without_timestamps: bool = False
+    max_initial_timestamp: Optional[float] = 1.0
+    # "int8": quantised cross-KV, dequantised inline on read
+    kv_dtype: str = "bf16"
+    cache_dtype: str = "bf16"
+    # the JAX package's two-level staging cache; token-identical to the
+    # flat loop, which is what runs here whatever the value
+    two_level: bool = True
+    stage_width: int = 64
+    spec_k: int = 4
+
+    def __post_init__(self):
+        if self.task not in ("transcribe", "translate"):
+            raise ValueError(
+                f"task must be 'transcribe' or 'translate', got {self.task!r}")
+        for field in ("kv_dtype", "cache_dtype"):
+            v = getattr(self, field)
+            if v not in ("bf16", "int8"):
+                raise ValueError(f"{field} must be 'bf16' or 'int8', got {v!r}")
+        if self.stage_width < 8 or self.stage_width % 8:
+            raise ValueError(f"stage_width must be a positive multiple of 8, "
+                             f"got {self.stage_width}")
+        if not 1 <= self.spec_k <= 16:
+            raise ValueError(f"spec_k must be in [1, 16], got {self.spec_k}")
+        unported = {
+            "beam_size": self.beam_size is not None,
+            "temperature > 0": self.temperature > 0,
+            "best_of": self.best_of is not None and self.best_of > 1,
+            "cache_dtype='int8'": self.cache_dtype == "int8",
+        }
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported to PyTorch yet (ROADMAP.md, "
+                    f"Queue 1); this port decodes greedily")
+
+
+@dataclasses.dataclass
+class DecodingResult:
+    tokens: List[int]
+    text: str
+    language: str
+    language_probs: Optional[Dict[str, float]]
+    avg_logprob: float
+    no_speech_prob: float
+    temperature: float
+    compression_ratio: float
+
+
+def compression_ratio(text: str) -> float:
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
+
+
+# ---------------------------------------------------------------------------
+# Suppress masks (host side)
+# ---------------------------------------------------------------------------
+
+def build_suppress_mask(tokenizer: Tokenizer, options: DecodingOptions) -> np.ndarray:
+    """Boolean (vocab,) — True where the token must never be sampled: the
+    user's ids ("-1" = the non-speech set), sot/sot_prev/sot_lm/no_speech,
+    the language and task specials, and no_timestamps."""
+    cfg = tokenizer.cfg
+    mask = np.zeros(cfg.n_vocab, dtype=bool)
+
+    sup = options.suppress_tokens
+    ids: List[int] = []
+    if isinstance(sup, str):
+        ids = [int(s) for s in sup.split(",") if s] if sup else []
+    elif sup is not None:
+        ids = list(sup)
+    if -1 in ids:
+        ids = [i for i in ids if i != -1]
+        ids.extend(tokenizer.non_speech_tokens)
+
+    ids.extend([tokenizer.transcribe, tokenizer.translate, tokenizer.sot,
+                tokenizer.sot_prev, tokenizer.sot_lm])
+    if tokenizer.no_speech is not None:
+        ids.append(tokenizer.no_speech)
+    ids.extend(range(cfg.lang_token_start, cfg.lang_token_start + cfg.n_langs))
+    mask[np.asarray(sorted(set(ids)), dtype=np.int64)] = True
+    mask[tokenizer.no_timestamps] = True
+    return mask
+
+
+def build_blank_mask(tokenizer: Tokenizer) -> np.ndarray:
+    """True for ' ' encodings and EOT — suppressed at the first sampled step."""
+    mask = np.zeros(tokenizer.cfg.n_vocab, dtype=bool)
+    for t in tokenizer.blank_tokens:
+        mask[t] = True
+    mask[tokenizer.eot] = True
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Logit rules
+# ---------------------------------------------------------------------------
+
+def _apply_logit_rules(
+    logits: torch.Tensor,  # (B, V) fp32
+    tokens: torch.Tensor,  # (B, L) buffer
+    pos: int,  # index being sampled now (lockstep)
+    cfg: WhisperConfig,
+    prompt_len: int,
+    suppress_mask: torch.Tensor,  # (V,) bool
+    blank_mask: torch.Tensor,  # (V,) bool
+    use_timestamps: bool,
+    ts_max: torch.Tensor,  # (B,) max timestamp token sampled so far
+    max_initial_ts_index: int,  # -1 disables
+) -> torch.Tensor:
+    vocab_ids = torch.arange(logits.shape[-1], device=logits.device)[None, :]
+    ts_begin = cfg.timestamp_begin
+    is_first = pos == prompt_len
+
+    logits = logits.masked_fill(suppress_mask[None, :], NEG_INF)
+    if is_first:
+        logits = logits.masked_fill(blank_mask[None, :], NEG_INF)
+    if not use_timestamps:
+        return logits.masked_fill(vocab_ids >= ts_begin, NEG_INF)
+
+    # openai ApplyTimestampRules
+    last = tokens[:, max(pos - 1, 0), None]
+    penult = tokens[:, max(pos - 2, 0), None]
+    last_is_ts = (last >= ts_begin) & (pos - 1 >= prompt_len)  # (B, 1)
+    # with fewer than two sampled tokens the "penultimate" counts as a
+    # timestamp, so the opening timestamp is followed by text
+    penult_is_ts = (penult >= ts_begin) | (pos - 2 < prompt_len)
+
+    # a) two timestamps in a row -> next must be text
+    rule_a = last_is_ts & penult_is_ts & (vocab_ids >= ts_begin)
+    # b) lone timestamp -> must pair: suppress text (eot allowed)
+    rule_b = last_is_ts & ~penult_is_ts & (vocab_ids < cfg.eot_token)
+    # c) non-decreasing timestamps: after a lone timestamp the pair may be
+    # equal, otherwise strictly greater; ts_max starts at ts_begin - 1
+    lone_ts = (last_is_ts & ~penult_is_ts)[:, 0]
+    ts_last = torch.where(lone_ts, ts_max, ts_max + 1)[:, None]
+    rule_c = (vocab_ids >= ts_begin) & (vocab_ids < ts_last)
+    logits = logits.masked_fill(rule_a | rule_b | rule_c, NEG_INF)
+
+    # d) the first sampled token is a timestamp, bounded by max_initial
+    if is_first:
+        logits = logits.masked_fill(vocab_ids < ts_begin, NEG_INF)
+        if max_initial_ts_index >= 0:
+            logits = logits.masked_fill(
+                vocab_ids > ts_begin + max_initial_ts_index, NEG_INF)
+
+    # e) if the total timestamp probability outweighs the best text token,
+    #    sample a timestamp
+    logprobs = torch.log_softmax(logits, dim=-1)
+    is_ts = vocab_ids >= ts_begin
+    ts_logprob = torch.logsumexp(logprobs.masked_fill(~is_ts, NEG_INF),
+                                 dim=-1, keepdim=True)
+    max_text = logprobs.masked_fill(is_ts, NEG_INF).amax(dim=-1, keepdim=True)
+    return logits.masked_fill((ts_logprob > max_text) & ~is_ts, NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# Greedy decode loop
+# ---------------------------------------------------------------------------
+
+def greedy_decode_core(
+    decoder: dec_mod.TextDecoder,
+    audio_features: torch.Tensor,  # (B, S, n_state)
+    initial_tokens: torch.Tensor,  # (B, P) left-padded to the P bucket
+    suppress_mask: torch.Tensor,  # (V,) bool
+    blank_mask: torch.Tensor,  # (V,) bool
+    max_initial_ts_index: int,  # -1 disables
+    pad_len: Union[int, torch.Tensor],  # int or (B,): slots [0, pad_len) are padding
+    sot_index: Union[int, torch.Tensor],  # int or (B,): slot holding the SOT token
+    *,
+    sample_len: int,
+    use_timestamps: bool,
+    prompt_len: int,
+    kv_dtype: str = "bf16",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy decode; returns (tokens (B, P+sample_len), sum_logprobs,
+    n_sampled, no_speech_prob). prompt_len is the bucket size; the true
+    prompt occupies slots [pad_len, prompt_len)."""
+    cfg = decoder.cfg
+    dev = audio_features.device
+    b = audio_features.shape[0]
+    eot = cfg.eot_token
+    total_len = prompt_len + sample_len
+
+    if kv_dtype == "int8":
+        cross_kv = dec_mod.precompute_cross_kv_int8(decoder, audio_features)
+    else:
+        cross_kv = dec_mod.precompute_cross_kv(decoder, audio_features)
+    cache_len = min(-(-total_len // 128) * 128, cfg.n_text_ctx)
+    cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev,
+                                  ctx=cache_len)
+    pad_len = torch.as_tensor(pad_len, device=dev)
+
+    initial_tokens = initial_tokens.to(device=dev, dtype=torch.long)
+    tokens = torch.full((b, total_len), eot, dtype=torch.long, device=dev)
+    tokens[:, :prompt_len] = initial_tokens
+
+    prefill_logits, cache = dec_mod.decode_step(
+        decoder, initial_tokens, cross_kv, cache, 0, valid_from=pad_len)
+    # no-speech probability at the prompt's SOT slot (per row if prompts differ)
+    si = torch.as_tensor(sot_index, device=dev).expand(b)
+    sot_logits = prefill_logits[torch.arange(b, device=dev), si]
+    no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, cfg.no_speech_token]
+
+    logits = prefill_logits[:, -1]
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    sum_lp = torch.zeros(b, dtype=torch.float32, device=dev)
+    n_sampled = torch.zeros(b, dtype=torch.long, device=dev)
+    ts_max = torch.full((b,), cfg.timestamp_begin - 1, dtype=torch.long,
+                        device=dev)
+    for pos in range(prompt_len, total_len):
+        filtered = _apply_logit_rules(
+            logits, tokens, pos, cfg, prompt_len, suppress_mask, blank_mask,
+            use_timestamps, ts_max, max_initial_ts_index)
+        tok = filtered.argmax(dim=-1)
+        tok_lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
+
+        tok = torch.where(finished, eot, tok)
+        sum_lp = sum_lp + torch.where(finished, 0.0, tok_lp)
+        n_sampled = n_sampled + (~finished).long()
+        ts_max = torch.where((tok >= cfg.timestamp_begin) & ~finished, tok, ts_max)
+        finished = finished | (tok == eot)
+        tokens[:, pos] = tok
+
+        next_logits, cache = dec_mod.decode_step(
+            decoder, tok[:, None], cross_kv, cache, pos, valid_from=pad_len)
+        logits = next_logits[:, 0]
+        if bool(finished.all()):
+            break
+    return tokens, sum_lp, n_sampled, no_speech_prob
+
+
+# ---------------------------------------------------------------------------
+# Language identification
+# ---------------------------------------------------------------------------
+
+def _detect_language_core(decoder: dec_mod.TextDecoder,
+                          audio_features: torch.Tensor):
+    cfg = decoder.cfg
+    b = audio_features.shape[0]
+    dev = audio_features.device
+    cross_kv = dec_mod.precompute_cross_kv(decoder, audio_features)
+    cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev)
+    sot = torch.full((b, 1), cfg.sot_token, dtype=torch.long, device=dev)
+    logits, _ = dec_mod.decode_step(decoder, sot, cross_kv, cache, 0)
+    logits = logits[:, 0]  # (B, V) fp32
+
+    lo, hi = cfg.lang_token_start, cfg.lang_token_start + cfg.n_langs
+    vocab_ids = torch.arange(cfg.n_vocab, device=dev)[None, :]
+    masked = logits.masked_fill((vocab_ids < lo) | (vocab_ids >= hi), NEG_INF)
+    lang_probs = torch.softmax(masked, dim=-1)[:, lo:hi]
+    return lang_probs.argmax(dim=-1), lang_probs
+
+
+def detect_language(model, mel_or_features, *, from_features: bool = False):
+    """Language ID: returns (codes: List[str], probs: List[Dict[str, float]])
+    from the SOT-step logits restricted to the language tokens."""
+    cfg = model.cfg
+    if not cfg.multilingual:
+        raise ValueError("language detection requires a multilingual model")
+    x = torch.as_tensor(mel_or_features, device=model.device)
+    x = x if x.ndim == 3 else x[None]
+    feats = x if from_features else model.encode(x)
+    idx, probs = _detect_language_core(model.decoder, feats)
+    idx = idx.cpu().numpy()
+    probs = probs.cpu().numpy()
+    codes = [LANGUAGES[i] for i in idx]
+    prob_dicts = [{LANGUAGES[j]: float(p[j]) for j in range(cfg.n_langs)}
+                  for p in probs]
+    return codes, prob_dicts
+
+
+# ---------------------------------------------------------------------------
+# Host-side decoding task (prompts, masks, then the greedy core)
+# ---------------------------------------------------------------------------
+
+# Few, coarse buckets bound the number of distinct prompt shapes: 4 covers
+# bare sot-sequences, 32 short prefixes, 224 conditioned long-form windows.
+_PROMPT_BUCKETS = (4, 32, 224)
+
+
+def _prompt_bucket(n: int, n_ctx: int) -> int:
+    for b in _PROMPT_BUCKETS:
+        if n <= b:
+            # small-context models (tests) must not bucket past their own
+            # context; n itself is pre-clamped to n_ctx - 2 by the caller
+            return min(b, n_ctx - 2)
+    return min(n, n_ctx - 2)
+
+
+def _as_token_list(tokenizer: Tokenizer, x: Union[str, List[int], None],
+                   prepend_space: bool = True) -> List[int]:
+    if x is None:
+        return []
+    if isinstance(x, str):
+        text = (" " + x.strip()) if prepend_space else x
+        return tokenizer.encode(text)
+    return list(x)
+
+
+def decode(
+    model,
+    mel_or_features,
+    options: DecodingOptions = DecodingOptions(),
+    *,
+    from_features: bool = False,
+    tokenizer: Optional[Tokenizer] = None,
+    draft=None,
+) -> List[DecodingResult]:
+    """Greedily decode a batch of 30 s windows (mel (B, n_mels, 3000), or
+    encoded features with from_features=True); one DecodingResult each."""
+    if draft is not None:
+        raise NotImplementedError("speculative decoding is not ported to "
+                                  "PyTorch yet (ROADMAP.md, Queue 1)")
+    cfg = model.cfg
+    dev = model.device
+    x = torch.as_tensor(mel_or_features, device=dev)
+    x = x if x.ndim == 3 else x[None]
+    feats = x if from_features else model.encode(x)
+    b = feats.shape[0]
+
+    # -- language ----------------------------------------------------------
+    language = options.language
+    language_probs: List[Optional[Dict[str, float]]] = [None] * b
+    if cfg.multilingual and language is None:
+        langs, language_probs = detect_language(model, feats, from_features=True)
+    else:
+        langs = [language or "en"] * b
+
+    if tokenizer is None:
+        tokenizer = get_tokenizer(cfg, language=langs[0] if cfg.multilingual
+                                  else None, task=options.task)
+
+    sot_seqs = []
+    for lang in langs:
+        if cfg.multilingual:
+            task_tok = (tokenizer.transcribe if options.task == "transcribe"
+                        else tokenizer.translate)
+            seq = [tokenizer.sot, tokenizer.language_token(lang), task_tok]
+        else:
+            seq = [tokenizer.sot]
+        if options.without_timestamps:
+            seq.append(tokenizer.no_timestamps)
+        sot_seqs.append(seq)
+
+    prompt_in = options.prompt
+    # per-sample prompts: a list whose entries are themselves prompts
+    # (str / token list / None), one per batch row; a flat list of ints is
+    # one shared prompt
+    per_sample_prompt = (isinstance(prompt_in, (list, tuple))
+                         and len(prompt_in) > 0
+                         and not isinstance(prompt_in[0], (int, np.integer)))
+    if per_sample_prompt:
+        if len(prompt_in) != b:
+            raise ValueError(f"per-sample prompt list has {len(prompt_in)} "
+                             f"entries for batch {b}")
+        prompt_rows = [_as_token_list(tokenizer, p) for p in prompt_in]
+    else:
+        prompt_rows = [_as_token_list(tokenizer, prompt_in)] * b
+    prefix_tokens = _as_token_list(tokenizer, options.prefix)
+
+    sample_len = options.sample_len or cfg.n_text_ctx // 2
+    # keep at most the trailing half-context of previous text and prefix
+    max_prompt = cfg.n_text_ctx // 2 - 1
+    prompt_rows = [p[-max_prompt:] if p else [] for p in prompt_rows]
+    if prefix_tokens:
+        prefix_tokens = prefix_tokens[-max_prompt:]
+
+    initial = []
+    max_len = cfg.n_text_ctx - 2  # leave room for >=1 sampled token + EOT
+    for seq, ptoks in zip(sot_seqs, prompt_rows):
+        toks = ([tokenizer.sot_prev] + ptoks if ptoks else [])
+        toks = toks + seq + prefix_tokens
+        if len(toks) > max_len:
+            # drop the OLDEST conditioning; the sot sequence sits after it
+            toks = toks[len(toks) - max_len:]
+        initial.append(toks)
+
+    # left-pad every row to one bucketed prompt length; per-row pads and sot
+    # slots keep rows with different prompts in one batch
+    prompt_len = _prompt_bucket(max(len(t) for t in initial), cfg.n_text_ctx)
+    pads = [prompt_len - len(t) for t in initial]
+    sots = [p + t.index(tokenizer.sot) for p, t in zip(pads, initial)]
+    initial = [[tokenizer.eot] * p + t for p, t in zip(pads, initial)]
+    sample_len = min(sample_len, cfg.n_text_ctx - prompt_len)
+    if per_sample_prompt:
+        pad, sot_index = torch.tensor(pads), torch.tensor(sots)
+    else:
+        assert all(p == pads[0] for p in pads)
+        pad, sot_index = pads[0], sots[0]
+
+    suppress_mask = torch.from_numpy(build_suppress_mask(tokenizer, options))
+    blank_mask = torch.from_numpy(build_blank_mask(tokenizer)
+                                  if options.suppress_blank
+                                  else np.zeros(cfg.n_vocab, bool))
+    max_init_idx = -1
+    if options.max_initial_timestamp is not None and not options.without_timestamps:
+        max_init_idx = round(options.max_initial_timestamp / 0.02)
+
+    tokens, sum_lp, n_sampled, no_speech_prob = greedy_decode_core(
+        model.decoder, feats, torch.tensor(initial),
+        suppress_mask.to(dev), blank_mask.to(dev), max_init_idx, pad,
+        sot_index, sample_len=sample_len,
+        use_timestamps=not options.without_timestamps,
+        prompt_len=prompt_len, kv_dtype=options.kv_dtype)
+
+    tokens = tokens.cpu().numpy()
+    sum_lp = sum_lp.cpu().numpy()
+    n_sampled = n_sampled.cpu().numpy()
+    no_speech_prob = no_speech_prob.cpu().numpy()
+    results = []
+    for i in range(b):
+        sampled = tokens[i, prompt_len:]
+        eot_pos = np.nonzero(sampled == tokenizer.eot)[0]
+        cut = int(eot_pos[0]) if len(eot_pos) else len(sampled)
+        toks = sampled[:cut].tolist()
+        text = tokenizer.decode(toks).strip()
+        results.append(DecodingResult(
+            tokens=toks,
+            text=text,
+            language=langs[i],
+            language_probs=language_probs[i],
+            avg_logprob=float(sum_lp[i] / max(int(n_sampled[i]), 1)),
+            no_speech_prob=float(no_speech_prob[i]),
+            temperature=float(options.temperature),
+            compression_ratio=compression_ratio(text),
+        ))
+    return results

@@ -1,0 +1,102 @@
+"""Top-level Whisper model and `load_model` (port of `models/whisper.py`)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+import torch
+from torch import nn
+
+from .. import audio as audio_mod
+from ..config import WhisperConfig, get_config
+from ..params import count_params, init_params
+from . import decoder as dec_mod
+from .encoder import AudioEncoder
+
+
+class WhisperModel(nn.Module):
+    """Encoder + decoder weights with the JAX package's entry points:
+    log_mel, encode, logits, detect_language and decode."""
+
+    def __init__(self, cfg: WhisperConfig, params: Mapping[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = AudioEncoder(cfg, params["encoder"])
+        self.decoder = dec_mod.TextDecoder(cfg, params["decoder"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.token_embedding.device
+
+    def log_mel(self, audio_wave) -> torch.Tensor:
+        """(n_samples,) or (B, n_samples) at 16 kHz -> log-mel on the model's
+        device, fp32."""
+        return audio_mod.log_mel_spectrogram(
+            torch.as_tensor(audio_wave, device=self.device), n_mels=self.cfg.n_mels)
+
+    def encode(self, mel) -> torch.Tensor:
+        """(B, n_mels, 3000) or (n_mels, 3000) -> (B, 1500, n_state)."""
+        mel = torch.as_tensor(mel, device=self.device)
+        if mel.ndim == 2:
+            return self.encoder(mel[None])[0]
+        return self.encoder(mel)
+
+    def logits(self, tokens, audio_features: torch.Tensor) -> torch.Tensor:
+        """Teacher-forcing logits (B, T, vocab), fp32."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        return dec_mod.decoder_forward(self.decoder, tokens, audio_features)
+
+    def detect_language(self, mel_or_features, *, from_features: bool = False):
+        from ..decoding import detect_language
+
+        return detect_language(self, mel_or_features, from_features=from_features)
+
+    def decode(self, mel, options=None, **kwargs):
+        """Decode one batch of 30 s windows; a bare result for an unbatched
+        mel (openai `model.decode` semantics)."""
+        from ..decoding import DecodingOptions, decode
+
+        if options is None:
+            options = DecodingOptions(**kwargs)
+        elif kwargs:
+            options = dataclasses.replace(options, **kwargs)
+        mel = torch.as_tensor(mel, device=self.device)
+        unbatched = mel.ndim == 2
+        results = decode(self, mel[None] if unbatched else mel, options)
+        return results[0] if unbatched else results
+
+    @property
+    def num_params(self) -> int:
+        return count_params(self)
+
+
+def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
+                seed: int = 0, quantize: Optional[str] = None,
+                device: torch.device | str | None = None) -> WhisperModel:
+    """A WhisperModel of `cfg` with random weights made from `seed` on
+    `device` (cuda when available, else cpu). dtype defaults to bf16 on
+    cuda and fp32 on cpu; quantize="int8" gives weights-only int8 linears."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantization {quantize!r}")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, generator, dtype=dtype, device=device)
+    if quantize == "int8":
+        from ..quantize import quantize_params
+
+        params = quantize_params(params)
+    return WhisperModel(cfg, params)
+
+
+def load_model(name: str, *, dtype: Optional[torch.dtype] = None, seed: int = 0,
+               quantize: Optional[str] = None,
+               device: torch.device | str | None = None) -> WhisperModel:
+    """Build a named Whisper size with random weights (see build_model).
+    Checkpoint files are not supported yet."""
+    return build_model(get_config(name), dtype=dtype, seed=seed,
+                       quantize=quantize, device=device)
