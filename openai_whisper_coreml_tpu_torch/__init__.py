@@ -1,19 +1,21 @@
 """PyTorch/CUDA port of the Whisper framework in `openai_whisper_coreml_tpu`.
 
-log-mel frontend -> encoder (Hopper flash-attention kernel) -> int8 or bf16
-cross-KV -> greedy KV-cached decoding with the timestamp rules, plus
-language ID. Imports torch, never JAX; the JAX package is the reference it
-is tested against.
+log-mel frontend (Hopper log-mel kernel) -> encoder (Hopper flash-attention
+kernel) -> int8 or bf16 cross-KV -> greedy, sampled or beam KV-cached
+decoding with the timestamp rules, language ID, long-form `transcribe` and
+the CLI (`python -m openai_whisper_coreml_tpu_torch`). Imports torch, never
+JAX; the JAX package is the reference it is tested against.
 """
 
 __version__ = "0.1.0"
 
 from .config import CONFIGS, WhisperConfig, get_config  # noqa: F401
-from .audio import log_mel_spectrogram, pad_or_trim  # noqa: F401
+from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import (DecodingOptions, DecodingResult, decode,  # noqa: F401
                        detect_language)
 from .models.whisper import WhisperModel, build_model, load_model  # noqa: F401
 from .tokenizer import get_tokenizer  # noqa: F401
+from .transcribe import transcribe  # noqa: F401
 
 
 def available_models():

@@ -1,16 +1,17 @@
-"""Whisper log-mel frontend in PyTorch.
+"""Whisper log-mel frontend in PyTorch, and audio file loading.
 
 The counterpart of `openai_whisper_coreml_tpu/audio.py`: the slaney mel
 filterbank, the periodic Hann window and the real-DFT matrices are the same
-numpy code; `log_mel_spectrogram` is the DFT-matmul form of the JAX
-`_log_mel_impl`, in fp32 on the input's device:
+numpy code. `log_mel_spectrogram` computes, in fp32 on the input's device:
 
   reflect-pad 200 each side, Hann 400-point frames at hop 160 (the last
-  frame dropped), |rfft|^2 as two matmuls, mel matmul, log10(max(x, 1e-10)),
+  frame dropped), |rfft|^2, mel product, log10(max(x, 1e-10)),
   then (max(x, per-sample max - 8) + 4) / 4.
 
-These are plain products outside any TPU kernel, so `torch.matmul` does
-them. On the card TF32 must be off for the 1e-3 fidelity gate
+The windowed DFT, the power and the mel product run in the fused K4 kernel
+(`ops/mel_kernel.py`, `csrc/mel.cu`) on the card, and in its plain version
+`log_mel_kernel_reference` (`torch.matmul`) on the CPU. On the card TF32
+must be off for the 1e-3 fidelity gate if the plain version is run there
 (`torch.backends.cuda.matmul.allow_tf32 = False`, the default).
 """
 
@@ -30,6 +31,7 @@ __all__ = [
     "dft_matrices",
     "log_mel_spectrogram",
     "pad_or_trim",
+    "load_audio",
 ]
 
 
@@ -132,29 +134,9 @@ def log_mel_spectrogram(audio: Union[np.ndarray, torch.Tensor],
         raise ValueError(
             f"n_samples ({n_samples}) must be a multiple of {HOP_LENGTH}; "
             "use pad_or_trim first")
-    batched = x.ndim == 2
-    x = (x if batched else x[None]).float()
-    dev = x.device
+    from .ops.mel_kernel import log_mel
 
-    pad = N_FFT // 2
-    x = torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
-    n_frames = n_samples // HOP_LENGTH
-    frames = x.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # (B, T, N_FFT)
-    frames = frames * torch.from_numpy(hann_window(N_FFT)).to(dev)
-
-    cos_m, sin_m = (torch.from_numpy(m).to(dev) for m in dft_matrices(N_FFT))
-    re = frames @ cos_m
-    im = frames @ sin_m
-    power = re * re + im * im  # (B, T, 201)
-
-    filters = torch.from_numpy(mel_filters(n_mels)).to(dev)  # (n_mels, 201)
-    mel = torch.matmul(filters, power.transpose(1, 2))  # (B, n_mels, T)
-
-    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
-    log_max = log_spec.amax(dim=(1, 2), keepdim=True)
-    log_spec = torch.maximum(log_spec, log_max - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
-    return log_spec if batched else log_spec[0]
+    return log_mel(x, n_mels)
 
 
 def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
@@ -179,3 +161,12 @@ def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
         pad_widths[axis] = (0, length - n)
         return np.pad(array, pad_widths)
     return array
+
+
+def load_audio(path: str, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """Load an audio file as float32 mono at `sample_rate` (host side). WAV
+    is decoded in Python; other formats need the optional native decoder
+    (`native/libwhisper_audio.so`)."""
+    from .utils import audio_io
+
+    return audio_io.load_audio(path, sample_rate)

@@ -1,13 +1,19 @@
-"""Greedy decoding, language ID and the logit rules (port of `decoding.py`).
+"""Decoding, language ID and the logit rules (port of `decoding.py`).
 
-The slice this port serves: greedy decoding (temperature 0) of a batch of
-30 s windows with prompt prefill, the suppress/blank/timestamp logit rules,
-int8 or bf16 cross-KV, no-speech probability, per-sample prompts, and
-language ID. The decode loop is the JAX package's flat loop
-(`two_level=False`): its two-level staging cache works around an XLA-TPU
-layout cost and gives the same tokens, so `two_level` is accepted and has
-no effect here. Beam search, sampling, best_of, the int8 self-attention
-cache and speculative decoding raise NotImplementedError (see ROADMAP.md).
+Greedy, sampled (temperature > 0, with `best_of` candidates) and beam
+(`beam.py`) decoding of a batch of 30 s windows with prompt prefill, the
+suppress/blank/timestamp logit rules, int8 or bf16 cross-KV, no-speech
+probability, per-sample prompts, and language ID. The decode loop is the
+JAX package's flat loop (`two_level=False`): its two-level staging cache
+works around an XLA-TPU layout cost and gives the same tokens, so
+`two_level` is accepted and has no effect here.
+
+Sampling draws Gumbel-max noise from a counter-based integer hash of
+(seed, row, absolute position, vocab id), so a sampled token is a pure
+function of those, as it is in JAX (`fold_in(fold_in(key, pos), row)`);
+JAX's threefry bits cannot be reproduced, so the two match in distribution
+only. The int8 self-attention cache and speculative decoding raise
+NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,17 +76,10 @@ class DecodingOptions:
                              f"got {self.stage_width}")
         if not 1 <= self.spec_k <= 16:
             raise ValueError(f"spec_k must be in [1, 16], got {self.spec_k}")
-        unported = {
-            "beam_size": self.beam_size is not None,
-            "temperature > 0": self.temperature > 0,
-            "best_of": self.best_of is not None and self.best_of > 1,
-            "cache_dtype='int8'": self.cache_dtype == "int8",
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP.md, "
-                    f"Queue 1); this port decodes greedily")
+        if self.cache_dtype == "int8":
+            raise NotImplementedError(
+                "cache_dtype='int8' (the int8 self-attention cache) is not "
+                "ported to PyTorch yet (ROADMAP.md, Queue 1)")
 
 
 @dataclasses.dataclass
@@ -205,7 +204,47 @@ def _apply_logit_rules(
 
 
 # ---------------------------------------------------------------------------
-# Greedy decode loop
+# Sampling: Gumbel-max over counter-based noise
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """Bijective 32-bit integer mixer on int64 tensors holding [0, 2^32);
+    both multipliers are odd and below 2^31, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _MASK32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed: int, rows: torch.Tensor, pos: int,
+                 n_vocab: int) -> torch.Tensor:
+    """(len(rows), n_vocab) standard Gumbel noise; entry [i, v] is a pure
+    function of (seed, rows[i], pos, v), the same on the CPU and the card."""
+    dev = rows.device
+    key = _mix32(_mix32(torch.tensor(seed & _MASK32, device=dev)) ^ (pos & _MASK32))
+    row_key = _mix32(key ^ (rows.long() & _MASK32))
+    bits = _mix32(_mix32(row_key[:, None] ^ torch.arange(n_vocab, device=dev)))
+    u = ((bits >> 8).float() + 0.5) * 2.0 ** -24  # 24 bits, open (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
+                  pos: int) -> torch.Tensor:
+    """One token per row of (B, V) logits: argmax at temperature 0, else a
+    draw from softmax(logits / temperature) keyed by (seed, row, pos)."""
+    if temperature <= 0:
+        return logits.argmax(dim=-1)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    noise = gumbel_noise(seed, rows, pos, logits.shape[-1])
+    return (logits / max(temperature, 1e-6) + noise).argmax(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Greedy / sampling decode loop
 # ---------------------------------------------------------------------------
 
 def greedy_decode_core(
@@ -222,10 +261,13 @@ def greedy_decode_core(
     use_timestamps: bool,
     prompt_len: int,
     kv_dtype: str = "bf16",
+    temperature: float = 0.0,
+    seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Greedy decode; returns (tokens (B, P+sample_len), sum_logprobs,
-    n_sampled, no_speech_prob). prompt_len is the bucket size; the true
-    prompt occupies slots [pad_len, prompt_len)."""
+    """Greedy (temperature 0) or sampled decode; returns (tokens
+    (B, P+sample_len), sum_logprobs, n_sampled, no_speech_prob). prompt_len
+    is the bucket size; the true prompt occupies slots [pad_len, prompt_len).
+    Log-probs are of the filtered, untempered logits, as in JAX."""
     cfg = decoder.cfg
     dev = audio_features.device
     b = audio_features.shape[0]
@@ -262,7 +304,7 @@ def greedy_decode_core(
         filtered = _apply_logit_rules(
             logits, tokens, pos, cfg, prompt_len, suppress_mask, blank_mask,
             use_timestamps, ts_max, max_initial_ts_index)
-        tok = filtered.argmax(dim=-1)
+        tok = sample_tokens(filtered, temperature, seed, pos)
         tok_lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
 
         tok = torch.where(finished, eot, tok)
@@ -321,7 +363,7 @@ def detect_language(model, mel_or_features, *, from_features: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Host-side decoding task (prompts, masks, then the greedy core)
+# Host-side decoding task (prompts, masks, then the decode core)
 # ---------------------------------------------------------------------------
 
 # Few, coarse buckets bound the number of distinct prompt shapes: 4 covers
@@ -348,6 +390,22 @@ def _as_token_list(tokenizer: Tokenizer, x: Union[str, List[int], None],
     return list(x)
 
 
+def rank_best_of(tokens: np.ndarray, sum_lp: np.ndarray,
+                 n_sampled: np.ndarray, no_speech_prob: np.ndarray,
+                 n_cand: int):
+    """Keep each row's best of its n_cand consecutive candidates by average
+    log-prob; the no-speech probability is the first candidate's."""
+    b = tokens.shape[0] // n_cand
+    tokens = tokens.reshape(b, n_cand, -1)
+    sum_lp = sum_lp.reshape(b, n_cand)
+    n_sampled = n_sampled.reshape(b, n_cand)
+    no_speech_prob = no_speech_prob.reshape(b, n_cand)[:, 0]
+    best = np.argmax(sum_lp / np.maximum(n_sampled, 1), axis=1)
+    rows = np.arange(b)
+    return (tokens[rows, best], sum_lp[rows, best], n_sampled[rows, best],
+            no_speech_prob)
+
+
 def decode(
     model,
     mel_or_features,
@@ -355,10 +413,14 @@ def decode(
     *,
     from_features: bool = False,
     tokenizer: Optional[Tokenizer] = None,
+    seed: int = 0,
     draft=None,
 ) -> List[DecodingResult]:
-    """Greedily decode a batch of 30 s windows (mel (B, n_mels, 3000), or
-    encoded features with from_features=True); one DecodingResult each."""
+    """Decode a batch of 30 s windows (mel (B, n_mels, 3000), or encoded
+    features with from_features=True); one DecodingResult each. Beam search
+    when options.beam_size is set at temperature 0; else greedy or sampled
+    (seeded by `seed`), with options.best_of candidates per row at
+    temperature > 0 ranked by average log-prob."""
     if draft is not None:
         raise NotImplementedError("speculative decoding is not ported to "
                                   "PyTorch yet (ROADMAP.md, Queue 1)")
@@ -447,17 +509,54 @@ def decode(
     if options.max_initial_timestamp is not None and not options.without_timestamps:
         max_init_idx = round(options.max_initial_timestamp / 0.02)
 
-    tokens, sum_lp, n_sampled, no_speech_prob = greedy_decode_core(
-        model.decoder, feats, torch.tensor(initial),
-        suppress_mask.to(dev), blank_mask.to(dev), max_init_idx, pad,
-        sot_index, sample_len=sample_len,
-        use_timestamps=not options.without_timestamps,
-        prompt_len=prompt_len, kv_dtype=options.kv_dtype)
+    suppress_mask, blank_mask = suppress_mask.to(dev), blank_mask.to(dev)
+    initial = torch.tensor(initial)
+    core_kw = dict(sample_len=sample_len,
+                   use_timestamps=not options.without_timestamps,
+                   prompt_len=prompt_len, kv_dtype=options.kv_dtype)
+    use_beam = options.beam_size is not None and options.temperature == 0.0
+    if use_beam and per_sample_prompt:
+        raise ValueError(
+            "per-sample prompts are supported for greedy/sampled decoding "
+            "only (beam search assumes one shared pad/sot layout)")
+    n_cand = (options.best_of
+              if options.best_of and options.temperature > 0 else 1)
+    if use_beam:
+        from .beam import beam_decode_core, rank_sequences
+
+        k = options.beam_size
+        max_candidates = max(k, round(k * (options.patience or 1.0)))
+        all_tokens, all_scores, all_lens, no_speech_prob = beam_decode_core(
+            model.decoder, feats, initial, suppress_mask, blank_mask,
+            max_init_idx, pad, sot_index, beam_size=k,
+            max_candidates=max_candidates, **core_kw)
+        best = rank_sequences(all_scores, all_lens,
+                              options.length_penalty).argmax(dim=1)
+        rows = torch.arange(b, device=best.device)
+        tokens, sum_lp, n_sampled = (all_tokens[rows, best],
+                                     all_scores[rows, best],
+                                     all_lens[rows, best])
+    else:
+        # best_of: independent sampled candidates per row, ranked by average
+        # log-prob (openai semantics; only meaningful at temperature > 0)
+        if n_cand > 1:
+            feats = feats.repeat_interleave(n_cand, dim=0)
+            initial = initial.repeat_interleave(n_cand, dim=0)
+            if per_sample_prompt:
+                pad = pad.repeat_interleave(n_cand)
+                sot_index = sot_index.repeat_interleave(n_cand)
+        tokens, sum_lp, n_sampled, no_speech_prob = greedy_decode_core(
+            model.decoder, feats, initial, suppress_mask, blank_mask,
+            max_init_idx, pad, sot_index, temperature=options.temperature,
+            seed=seed, **core_kw)
 
     tokens = tokens.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
     n_sampled = n_sampled.cpu().numpy()
     no_speech_prob = no_speech_prob.cpu().numpy()
+    if n_cand > 1:
+        tokens, sum_lp, n_sampled, no_speech_prob = rank_best_of(
+            tokens, sum_lp, n_sampled, no_speech_prob, n_cand)
     results = []
     for i in range(b):
         sampled = tokens[i, prompt_len:]

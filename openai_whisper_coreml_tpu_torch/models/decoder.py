@@ -82,6 +82,11 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def gather_cache(cache: KVCache, idx: torch.Tensor) -> KVCache:
+    """Reorder the cache's batch rows (beam-search source gather); a copy."""
+    return KVCache(cache.k[:, idx], cache.v[:, idx])
+
+
 def to_dmajor(x: torch.Tensor, n_head: int) -> torch.Tensor:
     """(B, S, n_state) -> (B, H, D, S)."""
     b, s, n = x.shape

@@ -17,7 +17,7 @@ from .encoder import AudioEncoder
 
 class WhisperModel(nn.Module):
     """Encoder + decoder weights with the JAX package's entry points:
-    log_mel, encode, logits, detect_language and decode."""
+    log_mel, encode, logits, detect_language, decode and transcribe."""
 
     def __init__(self, cfg: WhisperConfig, params: Mapping[str, Any]):
         super().__init__()
@@ -51,6 +51,13 @@ class WhisperModel(nn.Module):
         from ..decoding import detect_language
 
         return detect_language(self, mel_or_features, from_features=from_features)
+
+    def transcribe(self, audio, **kwargs):
+        """Long-form transcription of a path or mono float audio (see
+        `transcribe.transcribe`)."""
+        from ..transcribe import transcribe
+
+        return transcribe(self, audio, **kwargs)
 
     def decode(self, mel, options=None, **kwargs):
         """Decode one batch of 30 s windows; a bare result for an unbatched

@@ -1,0 +1,137 @@
+"""Log-mel frontend: the Hopper kernel, its wrapper and its plain version.
+
+`log_mel(audio, n_mels)` is the port of the JAX package's
+`ops/mel_kernel.py:log_mel_pallas`: it reflect-pads the audio, runs the
+fused kernel (windowed real DFT -> power -> mel -> log10) and applies the
+per-sample epilogue max(x, max - 8), (x + 4) / 4, then the transpose to
+(B, n_mels, T). The epilogue stays plain PyTorch, as it stays outside the
+Pallas kernel in JAX. On a CUDA tensor `log_mel_kernel` launches the
+hand-written kernel in `csrc/mel.cu` or raises; on a CPU tensor
+`log_mel_kernel_reference` runs the same math in PyTorch. There is no
+fallback from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..audio import dft_matrices, hann_window, mel_filters
+from ..config import HOP_LENGTH, N_FFT
+from ._build import load_library
+
+N_BINS = N_FFT // 2 + 1  # 201
+# Row width of the cos / -sin tables: the kernel's bin tiling (kBinsPad in
+# csrc/mel.cu, 7 warps x 4 groups of 8). The wrapper passes the width it
+# built, and the kernel refuses to launch on any other.
+BINS_PAD = 224
+
+# Kernel launches made by `log_mel_kernel` (a plain count; callers reset it).
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def windowed_dft_matrices() -> tuple[np.ndarray, np.ndarray]:
+    """(400, 201) cos / -sin real-DFT matrices with the Hann window folded in."""
+    w = hann_window(N_FFT)[:, None]
+    cos_m, sin_m = dft_matrices(N_FFT)
+    return (cos_m * w).astype(np.float32), (sin_m * w).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(n_mels: int, device: torch.device):
+    """The kernel's constant operands on `device`: cos and -sin (400, 224),
+    zero beyond bin 201; the transposed filterbank (201, n_mels); and for
+    each group of 4 filters the [lo, hi) bins where one is non-zero."""
+    pad = ((0, 0), (0, BINS_PAD - N_BINS))
+    cw, sw = (torch.from_numpy(np.pad(m, pad)).to(device)
+              for m in windowed_dft_matrices())
+    fb = mel_filters(n_mels)
+    nonzero = fb.reshape(n_mels // 4, 4, N_BINS).any(axis=1)
+    ranges = np.array([(np.argmax(r), N_BINS - np.argmax(r[::-1])) for r in nonzero],
+                      dtype=np.int32)
+    return (cw, sw, torch.from_numpy(np.ascontiguousarray(fb.T)).to(device),
+            torch.from_numpy(ranges).to(device))
+
+
+def log_mel_kernel_reference(audio_padded: torch.Tensor,
+                             n_mels: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: reflect-padded audio (B, 160 T +
+    400) fp32 -> unclamped log10(max(mel, 1e-10)), (B, T, n_mels) fp32."""
+    n_frames = (audio_padded.shape[-1] - N_FFT) // HOP_LENGTH
+    frames = audio_padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]
+    cw, sw = (torch.from_numpy(m).to(audio_padded.device)
+              for m in windowed_dft_matrices())
+    re = frames @ cw
+    im = frames @ sw
+    fbt = torch.from_numpy(mel_filters(n_mels).T).to(audio_padded.device)
+    mel = (re * re + im * im) @ fbt
+    return torch.log10(torch.clamp(mel, min=1e-10))
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library; sets its C types."""
+    lib = load_library("mel", "mel.cu")
+    fn = lib.whisper_log_mel_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p])
+    return lib
+
+
+def log_mel_kernel(audio_padded: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """Reflect-padded audio (B, 160 T + 400) fp32 -> (B, T, n_mels) unclamped
+    log10 mel. CUDA tensors launch the Hopper kernel on the current stream
+    or raise; CPU tensors take `log_mel_kernel_reference`."""
+    global launches
+    if audio_padded.device.type == "cpu":
+        return log_mel_kernel_reference(audio_padded, n_mels)
+    if audio_padded.device.type != "cuda":
+        raise ValueError(f"log_mel_kernel runs on cuda or cpu, not "
+                         f"{audio_padded.device}")
+    if audio_padded.dtype != torch.float32 or audio_padded.ndim != 2:
+        raise TypeError(f"mel kernel takes (B, N) fp32 audio, got "
+                        f"{tuple(audio_padded.shape)} {audio_padded.dtype}")
+    b, n = audio_padded.shape
+    if n < N_FFT or (n - N_FFT) % HOP_LENGTH or audio_padded.stride(1) != 1:
+        raise ValueError(f"mel kernel needs contiguous rows of 160 T + 400 "
+                         f"samples, got {n} (strides {audio_padded.stride()})")
+    if n_mels % 4:
+        raise ValueError(f"mel kernel needs n_mels % 4 == 0, got {n_mels}")
+    n_frames = (n - N_FFT) // HOP_LENGTH
+    cw, sw, fbt, fb_range = _tables(n_mels, audio_padded.device)
+    out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
+                      device=audio_padded.device)
+    if n_frames == 0 or b == 0:
+        return out
+    fn = load_kernel().whisper_log_mel_f32
+    with torch.cuda.device(audio_padded.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(audio_padded.data_ptr(), audio_padded.stride(0), n, b,
+                 n_frames, cw.data_ptr(), sw.data_ptr(), cw.shape[1],
+                 fbt.data_ptr(), fb_range.data_ptr(), n_mels, out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def log_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """Whisper log-mel of (B, N) or (N,) audio at 16 kHz, N % 160 == 0, on
+    the audio's device: (B, n_mels, N / 160) or (n_mels, N / 160) fp32."""
+    if audio.ndim == 1:
+        return log_mel(audio[None], n_mels)[0]
+    pad = N_FFT // 2
+    padded = torch.nn.functional.pad(audio.float()[:, None], (pad, pad),
+                                     mode="reflect")[:, 0]
+    log_spec = log_mel_kernel(padded, n_mels)
+    log_max = log_spec.amax(dim=(1, 2), keepdim=True)
+    log_spec = (torch.maximum(log_spec, log_max - 8.0) + 4.0) / 4.0
+    return log_spec.transpose(1, 2).contiguous()
