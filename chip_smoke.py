@@ -3,27 +3,42 @@
 Phases (each raises, so the script exits non-zero, on failure):
   1. find the card (exit non-zero without CUDA) and print its name and
      power limit;
-  2. build the Hopper kernels from csrc/, one nvcc per source, all at once,
-     and print ptxas' register and shared-memory lines;
-  3. hold the flash-attention kernel (K1) against its plain PyTorch version
-     at the encoder's geometry (bf16) and on a ragged shape, in bf16 and
-     fp32, and time both at the encoder's geometry;
-  4. hold the log-mel kernel (K4) against its plain version at (4, 480 000)
-     x 128 mels, a ragged (3, 112 000) x 80 and a one-hour bucket
-     (1, 61 920 000) x 128; time both at the first and the last shape and
-     record both's peak device memory at the last;
-  5. fp32 parity: one tiny model (full 1500-position audio context, head
-     dim 64) decodes the same mel, and transcribes the same 50 s audio, on
-     the CPU and on the card; tokens and segments must be equal;
-  6. the serving slice: large-v3 with random bf16/int8 weights serves a
-     batch of 4 random 30 s windows, then one window, then language ID;
-  7. long-form transcribe of ~70 s audio on that model: int8 cross-KV, the
-     ladder (0.0, 0.4) with beam 2 on t=0 and best_of 2 above;
-  8. the CLI in-process on a 35 s WAV: large-v3, int8 weights and
-     cross-KV, bf16, all five output formats.
-Phases 6-8 are the main paths: each starts with the kernels' launch counts
-at 0 and checks them against what the path implies (one K4 launch per
-log-mel call, one K1 launch per encoder layer per encode).
+  2. build the Hopper kernels from csrc/ (K3 and K6 share one source), one
+     nvcc per source, all at once, and print ptxas' register and
+     shared-memory lines;
+  3. hold each kernel against its plain PyTorch version on the card and
+     time both (CUDA events, alternating), with the one PyTorch call that
+     computes the same function where there is one:
+       K1 flash attention at the encoder's geometry (bf16, fp32, ragged);
+       K4 log-mel at (4, 480 000) x 128, (3, 112 000) x 80 and a one-hour
+       bucket (1, 61 920 000) x 128, with both's peak device memory;
+       K3 decode self-attention at (4,20,64,256) with per-row bounds and a
+       ragged (3,20,64,448) with pos at (and past) the last column;
+       K6 int8 single-query attention at cross geometry (4,20,64,1500),
+       self geometry (4,20,64,256) with per-row bounds, and with fp32 q;
+  4. fp32 parity on one tiny model (full 1500-position audio context, head
+     dim 64), CPU against card: decode with bf16 and with int8 caches (K6
+     on the card, inline dequantisation on the CPU), transcribe of 50 s,
+     and transcribe_batch of 20, 35 and 50 s clips under both schedulers;
+     tokens and segments must be equal, and static equal to continuous;
+  5. the main paths on large-v3 with random bf16/int8 weights: serve (a
+     batch of 4 windows at 224 tokens, then 1 at 64, then language ID),
+     transcribe of ~70 s, serve_batch (six requests, static scheduler with
+     the bf16 cache, then continuous with the int8 cache) and the CLI on a
+     35 s WAV (two 224-token windows). The batch-1 decode is shortened
+     from 224 to 64 tokens to keep the script near four minutes;
+  6. the decode step's profile: 5 large-v3 B=4 steps at a 224-token horizon
+     with the decode kernels through their per-step entries (K3 + K6), with
+     the per-call wrappers instead, with self_kernel=False (K6 only) and
+     with the plain versions in the kernels' place: kernels and device-busy
+     ms per step, and wall ms per step; the host's share of each kernel
+     wrapper (per-call host time of each entry, and a cProfile of the
+     step).
+Each main path starts with every kernel's launch count at 0 and checks it
+against what the path ran: one K4 launch per log-mel call, one K1 launch
+per encoder layer per encode, n_text_layer K3 launches per single-token
+step over a bf16 cache, n_text_layer K6 launches per single-token step
+with int8 cross-KV and as many again with an int8 self-cache.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Needs no network and no JAX.
@@ -34,6 +49,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -43,10 +59,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BF16_MAX_ABS, BF16_MEAN_ABS, FP32_MAX_ABS = 1e-2, 1e-3, 2e-5
 MEL_MAX_ABS = 1e-4
 SR = 16_000
+# published H100 SXM peaks (dense): HBM bytes/s and operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def log(*args):
@@ -84,6 +104,40 @@ def alternate(plain, kernel, iters=20) -> tuple[float, float, dict]:
             min(times["plain"], times["plain2"]), times)
 
 
+def device_ms(fn, kernel: str, iters=20) -> float:
+    """Device time per call of the CUDA kernels whose name contains
+    `kernel`, from torch.profiler: the kernel's own time, without the
+    wrapper's host work that a CUDA-event time of a short call includes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    # the profiler's activity buffer may drop a record of a short kernel
+    # now and then; more records than launches would mean a wrong name
+    if not 0 < len(us) <= iters:
+        raise AssertionError(f"profiler saw {len(us)} {kernel} launches, "
+                             f"expected {iters}")
+    if len(us) < iters:
+        log(f"profiler saw {len(us)} of {iters} {kernel} launches; the mean is "
+            f"over those")
+    return sum(us) / len(us) / 1e3
+
+
+def bound(nbytes: float, ops: float, op_type: str) -> dict:
+    """The least time the card could take: the larger of bytes over HBM
+    bandwidth and operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[op_type] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def speechy(seconds: float, seed: int) -> np.ndarray:
     """A modulated 200 Hz tone in noise (the JAX transcribe tests' input)."""
     t = np.arange(int(seconds * SR)) / SR
@@ -108,6 +162,17 @@ def build_kernels(modules) -> None:
                 log("    ptxas:", line.strip())
 
 
+def check_errors(name, out, ref, bf16: bool) -> float:
+    err = (out.float() - ref.float()).abs()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    log(f"{name}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e}")
+    ok = (max_abs <= BF16_MAX_ABS and mean_abs <= BF16_MEAN_ABS if bf16
+          else max_abs <= FP32_MAX_ABS)
+    if not (ok and torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: the kernel disagrees with its plain version")
+    return max_abs
+
+
 def check_flash(fa) -> dict:
     """K1 vs its plain version on the same inputs; returns the JSON record."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -121,30 +186,31 @@ def check_flash(fa) -> dict:
             q, k, v = (x.to(dtype) for x in base)
             out = fa.flash_attention(q, k, v)
             torch.cuda.synchronize()
-            ref = fa.flash_attention_reference(q, k, v).float()
-            err = (out.float() - ref).abs()
-            max_abs, mean_abs = err.max().item(), err.mean().item()
-            log(f"flash kernel vs plain {shape} {dtype}: max_abs {max_abs:.3e} "
-                f"mean_abs {mean_abs:.3e}")
-            if dtype == torch.bfloat16:
-                ok = max_abs <= BF16_MAX_ABS and mean_abs <= BF16_MEAN_ABS
-                worst = max(worst, max_abs)
+            bf16 = dtype == torch.bfloat16
+            err = check_errors(f"flash kernel vs plain {shape} {dtype}", out,
+                               fa.flash_attention_reference(q, k, v), bf16)
+            if bf16:
+                worst = max(worst, err)
                 if shape[1] == 1500:
                     timing = (q, k, v)
-            else:
-                ok = max_abs <= FP32_MAX_ABS
-            if not (ok and torch.isfinite(out).all()):
-                raise AssertionError(f"flash kernel disagrees at {shape} {dtype}")
     q, k, v = timing
     kernel_ms, plain_ms, times = alternate(
         lambda: fa.flash_attention_reference(q, k, v),
         lambda: fa.flash_attention(q, k, v))
-    log(f"flash (4,1500,20,64) bf16 on {card()}: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (runs: {times})")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), "fa_fwd_bf16")
+    b, t, h, d = q.shape
+    log(f"flash (4,1500,20,64) bf16 on {card()}: kernel {kernel_ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (runs: {times})")
     return {"name": "flash_attention", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/flash_attention.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/flash_attention.py:57",
-            "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
+            **bound(4 * b * t * h * d * 2, 4 * b * h * t * t * d, "bf16"),
+            "library_ms": library_ms}
 
 
 def peak_bytes(fn) -> int:
@@ -159,16 +225,36 @@ def peak_bytes(fn) -> int:
     return peak
 
 
+def mel_ops_per_frame(n_mels: int, dense_dft: bool) -> float:
+    """fp32 operations of one log-mel frame: the Hann window, a real
+    transform of N_FFT samples, the power of each bin, the mel product over
+    the filterbank's non-zero entries only, and the log. With dense_dft the
+    transform is the (N_FFT x bins) cos and sin products the kernel computes
+    (window folded in), as the TPU kernel does; without, a real FFT at the
+    usual 2.5 N log2 N, the least the function needs."""
+    from openai_whisper_coreml_tpu_torch.audio import mel_filters
+    from openai_whisper_coreml_tpu_torch.config import N_FFT
+
+    n_bins = N_FFT // 2 + 1
+    mel = 2 * int(np.count_nonzero(mel_filters(n_mels)))
+    if dense_dft:
+        transform = 4 * N_FFT * n_bins
+    else:
+        transform = N_FFT + 2.5 * N_FFT * np.log2(N_FFT)
+    return transform + 3 * n_bins + mel + n_mels
+
+
 def check_mel(mk) -> dict:
     """K4 vs its plain version on the same padded audio; the JSON record
-    carries the times at (4, 480 000) x 128."""
+    carries the times at (4, 480 000) x 128. No single PyTorch call
+    computes the log-mel (STFT, power, filterbank and log are several)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
     record = None
     for b, n, n_mels in ((4, 480_000, 128), (3, 16_000 * 7, 80),
                          (1, 61_920_000, 128)):
         x = torch.randn(b, n, generator=g, device="cuda") * 0.1
-        padded = torch.nn.functional.pad(x[:, None], (200, 200), mode="reflect")[:, 0]
+        padded = F.pad(x[:, None], (200, 200), mode="reflect")[:, 0]
         out = mk.log_mel_kernel(padded, n_mels)
         torch.cuda.synchronize()
         err = (out - mk.log_mel_kernel_reference(padded, n_mels)).abs()
@@ -183,13 +269,25 @@ def check_mel(mk) -> dict:
         kernel_ms, plain_ms, times = alternate(
             lambda: mk.log_mel_kernel_reference(padded, n_mels),
             lambda: mk.log_mel_kernel(padded, n_mels), iters=10)
-        log(f"mel ({b}, {n}) x {n_mels} on {card()}: kernel {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (runs: {times})")
+        dev_ms = device_ms(lambda: mk.log_mel_kernel(padded, n_mels), "log_mel_kernel",
+                           iters=10)
+        log(f"mel ({b}, {n}) x {n_mels} on {card()}: kernel {kernel_ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms (runs: {times})")
+        frames = out.shape[0] * out.shape[1]
+        nbytes = padded.numel() * 4 + out.numel() * 4
+        lim = bound(nbytes, frames * mel_ops_per_frame(n_mels, dense_dft=False), "fp32")
+        dense = bound(nbytes, frames * mel_ops_per_frame(n_mels, dense_dft=True), "fp32")
+        log(f"mel ({b}, {n}) x {n_mels} bound {lim['bound_ms']:.4f} ms "
+            f"({lim['bound_by']}; the function's minimum, a real FFT per frame); "
+            f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}) for the dense DFT "
+            f"the kernel computes, as the TPU kernel does")
         if record is None:
             record = {"name": "log_mel", "route": "cuda",
                       "source": "openai_whisper_coreml_tpu_torch/csrc/mel.cu",
                       "replaces": "openai_whisper_coreml_tpu/ops/mel_kernel.py:51",
-                      "ms": kernel_ms, "plain_ms": plain_ms}
+                      "ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      **lim, "dense_dft_bound_ms": dense["bound_ms"],
+                      "library_ms": None}
         else:
             kernel_peak = peak_bytes(lambda: mk.log_mel_kernel(padded, n_mels))
             plain_peak = peak_bytes(lambda: mk.log_mel_kernel_reference(padded, n_mels))
@@ -199,7 +297,147 @@ def check_mel(mk) -> dict:
     return record
 
 
-def fp32_parity(wt, fa, mk):
+def _bounds(b, c, g, per_row: bool):
+    """(pos, valid_from) int32 (B,) bounds inside [0, c), or scalars."""
+    if not per_row:
+        return c - 1, 0
+    pos = torch.randint(c // 2, c, (b,), generator=g, device="cuda", dtype=torch.int32)
+    vf = torch.randint(0, 8, (b,), generator=g, device="cuda", dtype=torch.int32)
+    return pos, vf
+
+
+def check_sqa_self(ss) -> dict:
+    """K3 vs its plain version: (4,20,64,256) bf16 with per-row bounds, a
+    ragged (3,20,64,448) with pos at the last column and one row past it
+    (clamped), and fp32 q; timed at (4,20,64,256) over all columns against
+    scaled_dot_product_attention with a boolean mask on transposed views."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    cases = [((4, 20, 64, 256), "per-row", torch.bfloat16),
+             ((3, 20, 64, 448), "last-column", torch.bfloat16),
+             ((4, 20, 64, 256), "per-row", torch.float32)]
+    for (b, h, d, c), kind, qdtype in cases:
+        q = torch.randn(b, h, d, generator=g, device="cuda").to(qdtype)
+        k, v = (torch.randn(b, h, d, c, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        if kind == "per-row":
+            pos, vf = _bounds(b, c, g, True)
+        else:
+            pos = torch.tensor([c - 1, 120, c], dtype=torch.int32, device="cuda")
+            vf = torch.tensor([0, 5, 2], dtype=torch.int32, device="cuda")
+        out = ss.sqa_self(q, k, v, pos, vf)
+        torch.cuda.synchronize()
+        worst = max(worst, check_errors(
+            f"sqa_self kernel vs plain {(b, h, d, c)} {kind} q {qdtype}", out,
+            ss.sqa_self_reference(q, k, v, pos, vf), True))
+    b, h, d, c = 4, 20, 64, 256
+    q = torch.randn(b, h, d, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(b, h, d, c, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    kernel_ms, plain_ms, times = alternate(
+        lambda: ss.sqa_self_reference(q, k, v, c - 1, 0),
+        lambda: ss.sqa_self(q, k, v, c - 1, 0), iters=50)
+    mask = torch.ones(b, 1, 1, c, dtype=torch.bool, device="cuda")
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(-1, -2), v.transpose(-1, -2), attn_mask=mask),
+        iters=50)
+    dev_ms = device_ms(lambda: ss.sqa_self(q, k, v, c - 1, 0), "Bf16KV")
+    lim = bound(2 * b * h * d * c * 2 + 2 * b * h * d * 2, 4 * b * h * d * c, "bf16")
+    log(f"sqa_self (4,20,64,256) bf16 on {card()}: kernel {kernel_ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+        f"{lim['bound_ms']:.5f} ms (runs: {times})")
+    return {"name": "sqa_self", "route": "cuda",
+            "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
+            "replaces": "openai_whisper_coreml_tpu/ops/sqa_self.py:39",
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **lim,
+            "library_ms": library_ms}
+
+
+def check_sqa_int8(si) -> dict:
+    """K6 vs its plain version at cross geometry (4,20,64,1500), self
+    geometry (4,20,64,256) with per-row bounds, and with fp32 q; timed at
+    cross geometry. No single PyTorch call attends over int8 K/V with
+    column scales."""
+    from openai_whisper_coreml_tpu_torch.models.decoder import quantize_kv_column
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    timing = None
+    for (b, h, d, s), per_row, qdtype in (((4, 20, 64, 1500), False, torch.bfloat16),
+                                          ((4, 20, 64, 256), True, torch.bfloat16),
+                                          ((4, 20, 64, 1500), False, torch.float32)):
+        q = torch.randn(b, h, d, generator=g, device="cuda").to(qdtype)
+        k8, ks = quantize_kv_column(torch.randn(b, h, d, s, generator=g, device="cuda"))
+        v8, vs = quantize_kv_column(torch.randn(b, h, d, s, generator=g, device="cuda"))
+        pos, vf = _bounds(b, s, g, per_row)
+        out = si.sqa_int8(q, k8, ks, v8, vs, pos, vf)
+        torch.cuda.synchronize()
+        bf16 = qdtype == torch.bfloat16
+        err = check_errors(f"sqa_int8 kernel vs plain {(b, h, d, s)} "
+                           f"{'per-row' if per_row else 'scalar'} q {qdtype}", out,
+                           si.sqa_int8_reference(q, k8, ks, v8, vs, pos, vf), bf16)
+        if bf16:
+            worst = max(worst, err)
+            if s == 1500:
+                timing = (q, k8, ks, v8, vs)
+    q, k8, ks, v8, vs = timing
+    b, h, d, s = k8.shape
+    kernel_ms, plain_ms, times = alternate(
+        lambda: si.sqa_int8_reference(q, k8, ks, v8, vs, s - 1, 0),
+        lambda: si.sqa_int8(q, k8, ks, v8, vs, s - 1, 0), iters=50)
+    dev_ms = device_ms(lambda: si.sqa_int8(q, k8, ks, v8, vs, s - 1, 0),
+                       "Int8KV")
+    lim = bound(2 * b * h * d * s + 2 * b * h * s * 4 + 2 * b * h * d * 2,
+                4 * b * h * d * s, "int8")
+    log(f"sqa_int8 (4,20,64,1500) bf16 q on {card()}: kernel {kernel_ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{lim['bound_ms']:.5f} ms; no single PyTorch call computes it "
+        f"(runs: {times})")
+    return {"name": "sqa_int8", "route": "cuda",
+            "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
+            "replaces": "openai_whisper_coreml_tpu/ops/sqa_int8.py:59",
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **lim,
+            "library_ms": None}
+
+
+@contextlib.contextmanager
+def counting_steps(calls):
+    """Count decode_step calls with T == 1 by the caches they get: bf16
+    KVCache (K3 with the loops' self_kernel), QuantKVCache (K6), and
+    QuantCrossKV (K6)."""
+    from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+
+    step = dec_mod.decode_step
+
+    def counting_step(decoder, tokens, cross_kv, cache, *args, **kwargs):
+        if tokens.shape[1] == 1:
+            calls["steps"] += 1
+            if isinstance(cache, dec_mod.KVCache) and cache.k.dtype == torch.bfloat16:
+                calls["bf16_self_steps"] += 1
+            if isinstance(cache, dec_mod.QuantKVCache):
+                calls["int8_self_steps"] += 1
+            if isinstance(cross_kv, dec_mod.QuantCrossKV):
+                calls["int8_cross_steps"] += 1
+        return step(decoder, tokens, cross_kv, cache, *args, **kwargs)
+
+    for key in ("steps", "bf16_self_steps", "int8_self_steps", "int8_cross_steps"):
+        calls.setdefault(key, 0)
+    dec_mod.decode_step = counting_step
+    try:
+        yield calls
+    finally:
+        dec_mod.decode_step = step
+
+
+def segments_key(segments):
+    return [(s["seek"], s["start"], s["end"], s["tokens"], s["text"])
+            for s in segments]
+
+
+def fp32_parity(wt, fa, mk, si):
     from openai_whisper_coreml_tpu_torch.config import tiny_test_config
 
     cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)  # D=64, T=1500
@@ -209,19 +447,24 @@ def fp32_parity(wt, fa, mk):
              ).astype(np.float32)
     mel = cpu.log_mel(audio)
     mel_err = (gpu.log_mel(audio).cpu() - mel).abs().max().item()
-    opts = wt.DecodingOptions(language="en", sample_len=64)
-    before = fa.launches
-    res_gpu = gpu.decode(mel.cuda(), opts)
-    launched = fa.launches - before
-    res_cpu = cpu.decode(mel, opts)
-    toks_gpu = [r.tokens for r in res_gpu]
-    toks_cpu = [r.tokens for r in res_cpu]
-    log(f"fp32 decode parity: mel max_abs {mel_err:.3e}; tokens equal "
-        f"{toks_gpu == toks_cpu} ({[len(t) for t in toks_gpu]} tokens); "
-        f"flash launches {launched}")
-    if mel_err > 1e-4 or toks_gpu != toks_cpu or launched != cfg.n_audio_layer:
-        raise AssertionError(f"fp32 CPU/CUDA parity failed: {toks_cpu} vs "
-                             f"{toks_gpu}, launches {launched}")
+    for kw in (dict(), dict(kv_dtype="int8", cache_dtype="int8")):
+        opts = wt.DecodingOptions(language="en", sample_len=64, **kw)
+        before = fa.launches, si.launches
+        with counting_steps({}) as calls:
+            res_gpu = gpu.decode(mel.cuda(), opts)
+        launched = fa.launches - before[0], si.launches - before[1]
+        res_cpu = cpu.decode(mel, opts)
+        toks_gpu = [r.tokens for r in res_gpu]
+        toks_cpu = [r.tokens for r in res_cpu]
+        want_k6 = cfg.n_text_layer * (calls["int8_self_steps"] + calls["int8_cross_steps"])
+        log(f"fp32 decode parity {kw}: mel max_abs {mel_err:.3e}; tokens equal "
+            f"{toks_gpu == toks_cpu} ({[len(t) for t in toks_gpu]} tokens); "
+            f"flash launches {launched[0]}, sqa_int8 launches {launched[1]} "
+            f"(expected {want_k6})")
+        if (mel_err > 1e-4 or toks_gpu != toks_cpu
+                or launched != (cfg.n_audio_layer, want_k6)):
+            raise AssertionError(f"fp32 CPU/CUDA parity failed {kw}: {toks_cpu} "
+                                 f"vs {toks_gpu}, launches {launched}")
 
     speech = speechy(50, 11)
     padded = np.zeros(3 * 480_000, np.float32)  # transcribe's mel bucket
@@ -234,20 +477,38 @@ def fp32_parity(wt, fa, mk):
     seg_gpu = gpu.transcribe(speech, **kw)["segments"]
     mel_launches = mk.launches - before
     seg_cpu = cpu.transcribe(speech, **kw)["segments"]
-
-    def key(segs):
-        return [(s["seek"], s["start"], s["end"], s["tokens"], s["text"])
-                for s in segs]
-
+    equal = segments_key(seg_gpu) == segments_key(seg_cpu)
     log(f"fp32 transcribe parity (50 s): mel max_abs card vs cpu {mel_err:.3e}; "
-        f"{len(seg_gpu)} segments, equal {key(seg_gpu) == key(seg_cpu)}; "
-        f"mel launches {mel_launches}")
+        f"{len(seg_gpu)} segments, equal {equal}; mel launches {mel_launches}")
     # the segments are the gate; the mel is held to the frontend's fidelity
     # gate (1e-3 against fp64): on this input fp32 already puts the lowest,
     # low-energy mel band ~7e-5 from an fp64 oracle on the CPU alone
-    if key(seg_gpu) != key(seg_cpu) or mel_launches != 1 or mel_err > 1e-3:
-        raise AssertionError(f"fp32 transcribe parity failed:\n{key(seg_cpu)}\n"
-                             f"vs\n{key(seg_gpu)}")
+    if not equal or mel_launches != 1 or mel_err > 1e-3:
+        raise AssertionError(f"fp32 transcribe parity failed:\n{seg_cpu}\nvs\n{seg_gpu}")
+
+    clips = [speechy(20, 21), speechy(35, 22), speechy(50, 23)]
+    results = {}
+    for scheduler in ("static", "continuous"):
+        opts = wt.ServeOptions(
+            batch_size=2, language="en", temperature=(0.0,), sample_len=12,
+            scheduler=scheduler, chunk_tokens=8, kv_dtype="int8",
+            cache_dtype="int8", no_speech_threshold=None, logprob_threshold=None,
+            compression_ratio_threshold=None)
+        before = si.launches
+        on_card = wt.transcribe_batch(gpu, clips, opts)
+        launched = si.launches - before
+        on_cpu = wt.transcribe_batch(cpu, clips, opts)
+        equal = [segments_key(a["segments"]) == segments_key(b["segments"])
+                 for a, b in zip(on_card, on_cpu)]
+        log(f"fp32 transcribe_batch parity ({scheduler}, int8 caches): segments "
+            f"per request {[len(r['segments']) for r in on_card]}, card == cpu "
+            f"{equal}; sqa_int8 launches {launched}")
+        if not all(equal) or launched == 0:
+            raise AssertionError(f"fp32 transcribe_batch parity failed ({scheduler})")
+        results[scheduler] = [segments_key(r["segments"]) for r in on_card]
+    if results["static"] != results["continuous"]:
+        raise AssertionError("fp32 transcribe_batch: static and continuous differ")
+    log("fp32 transcribe_batch: static == continuous")
 
 
 # launches of each kernel summed over the main paths
@@ -255,10 +516,11 @@ TOTALS: dict = {}
 
 
 @contextlib.contextmanager
-def main_path(name, kernels):
-    """Count the path's kernel launches from 0, and its encoder layers and
-    log-mel calls; on exit check that K1 launched once per encoder layer
-    run and K4 once per log-mel call, and that both launched."""
+def main_path(name, kernels, n_text_layer, idle=()):
+    """Count the path's kernel launches from 0, its encoder layers, log-mel
+    calls and single-token decode steps; on exit check each kernel's count
+    against what the path ran, and that every kernel but those in `idle`
+    launched."""
     from openai_whisper_coreml_tpu_torch.models.whisper import WhisperModel
 
     calls = {"encode": 0, "encoder_layers": 0, "log_mel": 0}
@@ -278,17 +540,22 @@ def main_path(name, kernels):
         mod.launches = 0
     t = time.perf_counter()
     try:
-        yield calls
-        torch.cuda.synchronize()
+        with counting_steps(calls):
+            yield calls
+            torch.cuda.synchronize()
     finally:
         WhisperModel.encode, WhisperModel.log_mel = encode, log_mel
     seconds = time.perf_counter() - t
     launches = {k: mod.launches for k, mod in kernels.items()}
     expected = {"flash_attention": calls["encoder_layers"],
-                "log_mel": calls["log_mel"]}
+                "log_mel": calls["log_mel"],
+                "sqa_self": n_text_layer * calls["bf16_self_steps"],
+                "sqa_int8": n_text_layer * (calls["int8_self_steps"]
+                                            + calls["int8_cross_steps"])}
     log(f"[{name}] {seconds:.3f} s wall on {card()}; calls {calls}; "
         f"launches {launches}, expected {expected}")
-    if launches != expected or not all(launches.values()):
+    if launches != expected or not all(n for k, n in launches.items()
+                                       if k not in idle):
         raise AssertionError(f"{name}: kernel launches {launches}, "
                              f"expected {expected}")
     for k, n in launches.items():
@@ -300,11 +567,14 @@ def serve_slice(wt, model, kernels):
     audio = (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
              ).astype(np.float32)
     opts = wt.DecodingOptions(language="en", kv_dtype="int8", sample_len=224)
+    # shortened from 224 tokens to keep the whole run near four minutes
+    short = dataclasses.replace(opts, sample_len=64)
     outputs = []
-    with main_path("serve", kernels) as calls:
+    with main_path("serve", kernels, cfg.n_text_layer) as calls:
         for name, fn in (
                 ("decode batch 4", lambda: model.decode(model.log_mel(audio), opts)),
-                ("decode batch 1", lambda: model.decode(model.log_mel(audio[:1]), opts)),
+                ("decode batch 1 (64 tokens)",
+                 lambda: model.decode(model.log_mel(audio[:1]), short)),
                 ("detect_language batch 4",
                  lambda: model.detect_language(model.log_mel(audio)))):
             t = time.perf_counter()
@@ -366,7 +636,7 @@ def transcribe_slice(model, kernels):
 
     tr.decode = recording_decode
     try:
-        with main_path("transcribe", kernels) as calls:
+        with main_path("transcribe", kernels, cfg.n_text_layer) as calls:
             result = model.transcribe(audio, kv_dtype="int8", temperature=(0.0, 0.4),
                                       beam_size=2, best_of=2, sample_len=32)
     finally:
@@ -382,6 +652,30 @@ def transcribe_slice(model, kernels):
         f"{[s['temperature'] for s in result['segments']]}")
 
 
+def serve_batch_slice(wt, model, kernels):
+    """Six requests (10-70 s) through transcribe_batch: the static scheduler
+    with the bf16 self-cache (K3 + K6), then the continuous scheduler with
+    the int8 self-cache (K6 only)."""
+    cfg = model.cfg
+    seconds = (10, 20, 35, 50, 65, 70)
+    audios = [speechy(s, 30 + i) for i, s in enumerate(seconds)]
+    runs = (("serve_batch static", dict(scheduler="static"), ()),
+            ("serve_batch continuous", dict(scheduler="continuous",
+                                            cache_dtype="int8", chunk_tokens=16),
+             ("sqa_self",)))
+    for name, kw, idle in runs:
+        opts = wt.ServeOptions(batch_size=4, sample_len=48, language="en",
+                               temperature=(0.0, 0.4), kv_dtype="int8", **kw)
+        with main_path(name, kernels, cfg.n_text_layer, idle=idle) as calls:
+            results = wt.transcribe_batch(model, audios, opts)
+        for r, s in zip(results, seconds):
+            check_segments(r, cfg, float(s))
+        log(f"{name}: {calls['encode']} encoder calls, {calls['steps']} "
+            f"single-token steps; segments per request "
+            f"{[len(r['segments']) for r in results]}; temperatures "
+            f"{sorted({seg['temperature'] for r in results for seg in r['segments']})}")
+
+
 def cli_slice(kernels):
     from openai_whisper_coreml_tpu_torch import cli
     from openai_whisper_coreml_tpu_torch.config import get_config
@@ -390,8 +684,8 @@ def cli_slice(kernels):
     cfg = get_config("large-v3")
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "clip.wav")
-        save_wav(wav, speechy(35, 5))
-        with main_path("cli", kernels):
+        save_wav(wav, speechy(35, 5))  # two windows: the seek runs on the card
+        with main_path("cli", kernels, cfg.n_text_layer) as calls:
             rc = cli.main([wav, "--model", "large-v3", "--quantize", "int8",
                            "--kv-dtype", "int8", "--dtype", "bfloat16",
                            "--temperature-increment-on-fallback", "0",
@@ -410,7 +704,173 @@ def cli_slice(kernels):
     check_segments(result, cfg, 35.0)
     if not vtt.startswith("WEBVTT") or min(sizes.values()) == 0:
         raise AssertionError(f"cli output files: {sizes}")
+    if calls["encode"] < 2:
+        raise AssertionError(f"cli: {calls['encode']} windows encoded, expected 2")
     log(f"cli wrote {sizes} bytes; {len(result['segments'])} segments")
+
+
+def host_us_per_call(fn, calls: int) -> float:
+    """Host microseconds per call of `calls` back-to-back launches (no sync
+    between them: the card's queue holds them), best of three."""
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        best = min(best, (time.perf_counter() - t) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return best
+
+
+def host_profile(run, steps: int) -> dict:
+    """cProfile of `run` (`steps` decode steps): host ms per step (inflated
+    by the profiler's own cost per Python call), and the time and share
+    inside the decode kernels' step entries, their per-call wrappers and
+    the cache writes; the top functions by own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+    total = sum(v[2] for v in stats.values())
+    groups = {"step entries": {("sqa_int8.py", "sqa_int8_layers"), ("sqa_int8.py", "attend"),
+                               ("sqa_self.py", "sqa_self_layers"), ("sqa_self.py", "attend")},
+              "per-call wrappers": {("sqa_int8.py", "sqa_int8"), ("sqa_self.py", "sqa_self")},
+              "cache writes": {("decoder.py", "_cache_write"), ("decoder.py", "_cache_index")}}
+    shares = {}
+    for group, names in groups.items():
+        cum = sum(v[3] for (f, _, name), v in stats.items()
+                  if (os.path.basename(f), name) in names)
+        shares[group] = {"ms_per_step": cum * 1e3 / steps, "share": cum / total}
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
+    return {"host_ms_per_step": total * 1e3 / steps, "groups": shares,
+            "top_own_time": [(f"{os.path.basename(f)}:{name}", v[2] * 1e3 / steps)
+                             for (f, _, name), v in top]}
+
+
+def profile_step(model, ss, si):
+    """5 large-v3 B=4 decode steps at a 224-token horizon (256-column bf16
+    cache, int8 cross-KV, positions 100-104) four ways: the decode kernels
+    through decode_step's per-step entries (K3 + K6), the same kernels
+    through their per-call wrappers, self_kernel=False (K6 only) and the
+    plain versions in the kernels' place. Prints device events and
+    device-busy ms per step from torch.profiler, and wall ms per step (host
+    clock, synchronised, outside the profiler; best of two alternating
+    runs). Then the wrappers' host cost: host microseconds per call of each
+    entry and each per-call wrapper at the step's shapes, and a cProfile of
+    the kernels' step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+
+    cfg = model.cfg
+    b, steps = 4, 5
+    g = torch.Generator(device="cuda").manual_seed(5)
+    feats = torch.randn(b, cfg.n_audio_ctx, cfg.n_audio_state, generator=g,
+                        device="cuda").bfloat16()
+    cross = dec_mod.precompute_cross_kv_int8(model.decoder, feats)
+    cache = dec_mod.init_kv_cache(cfg, b, torch.bfloat16, "cuda", ctx=256)
+    tok = torch.randint(0, cfg.timestamp_begin, (b, 1), generator=g, device="cuda")
+
+    def per_layer(fn):
+        """An entry that calls fn(q (B,H,D), layer l of each stacked tensor,
+        pos, valid_from) per layer: the kernels' per-call wrappers or their
+        plain versions."""
+        def layers(*args):
+            *stacked, pos, valid_from = args
+            return lambda q, l: fn(q[:, 0], *(t[l] for t in stacked), pos,
+                                   valid_from)[:, None]
+        return layers
+
+    @contextlib.contextmanager
+    def entries(self_fn, int8_fn):
+        saved = dec_mod.sqa_self_layers, dec_mod.sqa_int8_layers
+        dec_mod.sqa_self_layers = per_layer(self_fn)
+        dec_mod.sqa_int8_layers = per_layer(int8_fn)
+        try:
+            yield
+        finally:
+            dec_mod.sqa_self_layers, dec_mod.sqa_int8_layers = saved
+
+    modes = {"kernels": (True, contextlib.nullcontext),
+             "kernels, per-call wrappers": (True, lambda: entries(ss.sqa_self,
+                                                                  si.sqa_int8)),
+             "self_kernel=False": (False, contextlib.nullcontext),
+             "plain versions": (True, lambda: entries(ss.sqa_self_reference,
+                                                      si.sqa_int8_reference))}
+
+    def run(mode):
+        self_kernel, ctx = modes[mode]
+        with ctx():
+            for i in range(steps):
+                dec_mod.decode_step(model.decoder, tok, cross, cache, 100 + i,
+                                    self_kernel=self_kernel)
+
+    wall = {}
+    for mode in list(modes) + list(reversed(modes)):
+        run(mode)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        wall[mode] = min(wall.get(mode, ms), ms)
+    profile_out = {}
+    for mode in modes:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(mode)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+        profile_out[mode] = {"device_events_per_step": len(device) / steps,
+                             "device_busy_ms_per_step": busy_ms,
+                             "wall_ms_per_step": wall[mode]}
+        log(f"decode step profile ({mode}) on {card()}: "
+            f"{len(device) / steps:.1f} device events and {busy_ms:.3f} ms "
+            f"device-busy per step; {wall[mode]:.3f} ms wall per step")
+    log("decode step profile: " + json.dumps(profile_out))
+
+    # the wrappers' host cost at the step's shapes: one step's 32 calls each
+    n = cfg.n_text_layer
+    q = torch.randn(b, 1, cfg.n_text_head, cfg.text_head_dim, generator=g,
+                    device="cuda").bfloat16()
+    k8, ks, v8, vs = cross
+    s_cols = k8.shape[-1]
+    host = {
+        "sqa_int8 cross, per-call wrapper": host_us_per_call(
+            lambda l: si.sqa_int8(q[:, 0], k8[l], ks[l], v8[l], vs[l], s_cols - 1, 0),
+            n),
+        "sqa_int8 cross, step entry": host_us_per_call(
+            lambda l, a=si.sqa_int8_layers(*cross, s_cols - 1, 0): a(q, l), n),
+        "sqa_int8 cross, making the step entry": host_us_per_call(
+            lambda l: si.sqa_int8_layers(*cross, s_cols - 1, 0), n),
+        "sqa_self, per-call wrapper": host_us_per_call(
+            lambda l: ss.sqa_self(q[:, 0], cache.k[l], cache.v[l], 100, 0), n),
+        "sqa_self, step entry": host_us_per_call(
+            lambda l, a=ss.sqa_self_layers(cache.k, cache.v, 100, 0): a(q, l), n),
+        "sqa_self, making the step entry": host_us_per_call(
+            lambda l: ss.sqa_self_layers(cache.k, cache.v, 100, 0), n),
+    }
+    for name, us in host.items():
+        log(f"host time per call, {name}: {us:.2f} us")
+    cprof = {}
+    for mode in ("kernels", "kernels, per-call wrappers"):
+        cprof[mode] = out = host_profile(lambda: run(mode), steps)
+        log(f"decode step host profile (cProfile, {mode}): "
+            f"{out['host_ms_per_step']:.3f} ms host per step under cProfile")
+        for group, v in out["groups"].items():
+            log(f"  {group}: {v['ms_per_step']:.3f} ms per step, "
+                f"{100 * v['share']:.2f}%")
+        log("  top own time (ms per step): " + ", ".join(
+            f"{name} {ms:.3f}" for name, ms in out["top_own_time"]))
+    log("decode step host cost: " + json.dumps({"host_us_per_call": host,
+                                                 "cprofile": cprof}))
 
 
 def main() -> int:
@@ -421,16 +881,19 @@ def main() -> int:
     import openai_whisper_coreml_tpu_torch as wt
     from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
     from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
+    from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
+    from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
 
     log(card())
     log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {"flash_attention": fa, "log_mel": mk}
+    kernels = {"flash_attention": fa, "log_mel": mk, "sqa_self": ss, "sqa_int8": si}
 
-    build_kernels({"flash_attention": fa, "mel": mk})
-    records = [check_flash(fa), check_mel(mk)]
-    fp32_parity(wt, fa, mk)
+    # by library name; K3 (ss) and K6 (si) are entry points of one library
+    build_kernels({"flash_attention": fa, "mel": mk, "sqa": ss})
+    records = [check_flash(fa), check_mel(mk), check_sqa_self(ss), check_sqa_int8(si)]
+    fp32_parity(wt, fa, mk, si)
 
     t0 = time.perf_counter()
     model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
@@ -440,6 +903,8 @@ def main() -> int:
         f"{model.num_params} parameters")
     serve_slice(wt, model, kernels)
     transcribe_slice(model, kernels)
+    serve_batch_slice(wt, model, kernels)
+    profile_step(model, ss, si)
     del model
     torch.cuda.empty_cache()
     cli_slice(kernels)

@@ -2,9 +2,12 @@
 
 log-mel frontend (Hopper log-mel kernel) -> encoder (Hopper flash-attention
 kernel) -> int8 or bf16 cross-KV -> greedy, sampled or beam KV-cached
-decoding with the timestamp rules, language ID, long-form `transcribe` and
-the CLI (`python -m openai_whisper_coreml_tpu_torch`). Imports torch, never
-JAX; the JAX package is the reference it is tested against.
+decoding over a bf16 or int8 self-attention cache (Hopper single-query
+attention kernels on every single-token step) with the timestamp rules,
+language ID, long-form `transcribe`, batched serving (`transcribe_batch`,
+static and continuous schedulers) and the CLI (`python -m
+openai_whisper_coreml_tpu_torch`). Imports torch, never JAX; the JAX
+package is the reference it is tested against.
 """
 
 __version__ = "0.1.0"
@@ -14,6 +17,7 @@ from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import (DecodingOptions, DecodingResult, decode,  # noqa: F401
                        detect_language)
 from .models.whisper import WhisperModel, build_model, load_model  # noqa: F401
+from .serve import ServeOptions, transcribe_batch  # noqa: F401
 from .tokenizer import get_tokenizer  # noqa: F401
 from .transcribe import transcribe  # noqa: F401
 

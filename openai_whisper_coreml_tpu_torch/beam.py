@@ -6,7 +6,8 @@ The JAX package's flat formulation, step for step:
   * each step: top-2K candidates from the (K x V) merged scores; the first
     K non-EOT continue, EOT candidates merge into a per-batch finished
     buffer (top max_candidates = round(beam_size * patience) kept);
-  * the KV cache reordered per step by gathering the beams' source rows;
+  * the KV cache (bf16 or int8) reordered per step by gathering the beams'
+    source rows;
   * first-step degeneracy broken by masking beams 1..K-1 to -inf;
   * early exit when no alive beam can beat the worst kept finished score;
   * finalize: alive beams join the finished ones, the top max_candidates
@@ -54,6 +55,7 @@ def beam_decode_core(
     beam_size: int,
     max_candidates: int,
     kv_dtype: str = "bf16",
+    cache_dtype: str = "bf16",
 ):
     """Returns (tokens (B, max_candidates, P+sample_len), sum_logprobs
     (B, max_candidates), lengths (B, max_candidates), no_speech_prob (B,));
@@ -71,13 +73,12 @@ def beam_decode_core(
 
     # prompts replicate across beams; cross-KV is computed once per row
     init = initial_tokens.to(device=dev, dtype=torch.long).repeat_interleave(k, dim=0)
-    if kv_dtype == "int8":
-        cross_b = dec_mod.precompute_cross_kv_int8(decoder, audio_features)
-    else:
-        cross_b = dec_mod.precompute_cross_kv(decoder, audio_features)
+    cross_b = dec_mod.precompute_cross(decoder, audio_features, kv_dtype)
     cross_kv = type(cross_b)(*(t.repeat_interleave(k, dim=1) for t in cross_b))
     cache_len = min(-(-total_len // 128) * 128, cfg.n_text_ctx)
-    cache = dec_mod.init_kv_cache(cfg, bk, audio_features.dtype, dev, ctx=cache_len)
+    cache = dec_mod.init_cache(cfg, bk, audio_features.dtype, dev, ctx=cache_len,
+                               cache_dtype=cache_dtype)
+    self_kernel = dec_mod.use_self_kernel(cache)
 
     tokens = torch.full((bk, total_len), eot, dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init
@@ -140,7 +141,8 @@ def beam_decode_core(
 
         cache = dec_mod.gather_cache(cache, flat_src)
         next_logits, cache = dec_mod.decode_step(
-            decoder, new_tok[:, None], cross_kv, cache, pos, valid_from=pad_len)
+            decoder, new_tok[:, None], cross_kv, cache, pos, valid_from=pad_len,
+            self_kernel=self_kernel)
         logits = next_logits[:, 0]
         pos += 1
 

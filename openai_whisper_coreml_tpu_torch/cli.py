@@ -5,10 +5,10 @@ Files of any length in, transcripts out (txt/srt/vtt/tsv/json), or language
 ID with `--task lang-id`. The flags are the JAX package's. Those whose
 module is not ported yet raise with a message naming ROADMAP.md:
 `--checkpoint`, `--stream`, `--draft-model`, `--word-timestamps`,
-`--profile-dir` and `--tensor-parallel` above 1; `--cache-dtype int8`
-raises through DecodingOptions. Left out are the JAX CLI's `--batch`, which
-it never reads, and `--draft-checkpoint` and `--spec-k`, which only
-`--draft-model` reads.
+`--profile-dir` and `--tensor-parallel` above 1. Left out are the JAX
+CLI's `--batch`, which it never reads, and `--draft-checkpoint` and
+`--spec-k`, which only `--draft-model` reads. The model is built on the
+card; without one, loading it raises.
 """
 
 from __future__ import annotations
@@ -94,14 +94,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-format", "-f", default="txt",
                    choices=("txt", "srt", "vtt", "tsv", "json", "all"))
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
-                   help="activation dtype; default bf16 on cuda, fp32 on cpu")
+                   help="activation dtype (default bfloat16)")
     p.add_argument("--quantize", choices=("int8",), default=None,
                    help="weights-only int8 linears")
     p.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
                    help="cross-attention K/V precision")
     p.add_argument("--cache-dtype", choices=("bf16", "int8"), default="bf16",
-                   help="self-attention KV-cache precision (int8 not ported "
-                        "yet)")
+                   help="self-attention KV-cache precision")
     p.add_argument("--draft-model", default=None, metavar="NAME",
                    help="speculative decoding draft model (not ported yet)")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",

@@ -3,17 +3,18 @@
 Greedy, sampled (temperature > 0, with `best_of` candidates) and beam
 (`beam.py`) decoding of a batch of 30 s windows with prompt prefill, the
 suppress/blank/timestamp logit rules, int8 or bf16 cross-KV, no-speech
-probability, per-sample prompts, and language ID. The decode loop is the
-JAX package's flat loop (`two_level=False`): its two-level staging cache
-works around an XLA-TPU layout cost and gives the same tokens, so
-`two_level` is accepted and has no effect here.
+probability, per-sample prompts, language ID, and a bf16 or int8
+self-attention cache (`cache_dtype`). The decode loop is the JAX package's
+flat loop (`two_level=False`): its two-level staging cache works around an
+XLA-TPU layout cost and gives the same tokens, so `two_level` is accepted
+and has no effect here. On the card, single-token steps over a bf16 cache
+run the K3 kernel (`decode_step(self_kernel=True)`), which JAX leaves off.
 
 Sampling draws Gumbel-max noise from a counter-based integer hash of
 (seed, row, absolute position, vocab id), so a sampled token is a pure
 function of those, as it is in JAX (`fold_in(fold_in(key, pos), row)`);
 JAX's threefry bits cannot be reproduced, so the two match in distribution
-only. The int8 self-attention cache and speculative decoding raise
-NotImplementedError (see ROADMAP.md).
+only. Speculative decoding raises NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ class DecodingOptions:
     suppress_blank: bool = True
     without_timestamps: bool = False
     max_initial_timestamp: Optional[float] = 1.0
-    # "int8": quantised cross-KV, dequantised inline on read
+    # "int8": quantised cross-KV; "int8" cache_dtype: quantised self-attention
+    # cache. Both are dequantised inline on the CPU and inside the K6 kernel
+    # on the card's single-token steps
     kv_dtype: str = "bf16"
     cache_dtype: str = "bf16"
     # the JAX package's two-level staging cache; token-identical to the
@@ -76,10 +79,6 @@ class DecodingOptions:
                              f"got {self.stage_width}")
         if not 1 <= self.spec_k <= 16:
             raise ValueError(f"spec_k must be in [1, 16], got {self.spec_k}")
-        if self.cache_dtype == "int8":
-            raise NotImplementedError(
-                "cache_dtype='int8' (the int8 self-attention cache) is not "
-                "ported to PyTorch yet (ROADMAP.md, Queue 1)")
 
 
 @dataclasses.dataclass
@@ -148,7 +147,8 @@ def build_blank_mask(tokenizer: Tokenizer) -> np.ndarray:
 def _apply_logit_rules(
     logits: torch.Tensor,  # (B, V) fp32
     tokens: torch.Tensor,  # (B, L) buffer
-    pos: int,  # index being sampled now (lockstep)
+    pos: Union[int, torch.Tensor],  # index being sampled now: int (lockstep)
+    # or (B,) per row (continuous batching)
     cfg: WhisperConfig,
     prompt_len: int,
     suppress_mask: torch.Tensor,  # (V,) bool
@@ -159,17 +159,24 @@ def _apply_logit_rules(
 ) -> torch.Tensor:
     vocab_ids = torch.arange(logits.shape[-1], device=logits.device)[None, :]
     ts_begin = cfg.timestamp_begin
-    is_first = pos == prompt_len
+    rowpos = torch.is_tensor(pos)
+    if rowpos:
+        pos = pos[:, None]  # (B, 1); the rules below broadcast over rows
+        last = tokens.gather(1, (pos - 1).clamp(min=0))
+        penult = tokens.gather(1, (pos - 2).clamp(min=0))
+    else:
+        last = tokens[:, max(pos - 1, 0), None]
+        penult = tokens[:, max(pos - 2, 0), None]
+    is_first = pos == prompt_len  # bool, or (B, 1) per row
+    any_first = rowpos or is_first
 
     logits = logits.masked_fill(suppress_mask[None, :], NEG_INF)
-    if is_first:
-        logits = logits.masked_fill(blank_mask[None, :], NEG_INF)
+    if any_first:
+        logits = logits.masked_fill(blank_mask[None, :] & is_first, NEG_INF)
     if not use_timestamps:
         return logits.masked_fill(vocab_ids >= ts_begin, NEG_INF)
 
     # openai ApplyTimestampRules
-    last = tokens[:, max(pos - 1, 0), None]
-    penult = tokens[:, max(pos - 2, 0), None]
     last_is_ts = (last >= ts_begin) & (pos - 1 >= prompt_len)  # (B, 1)
     # with fewer than two sampled tokens the "penultimate" counts as a
     # timestamp, so the opening timestamp is followed by text
@@ -187,11 +194,11 @@ def _apply_logit_rules(
     logits = logits.masked_fill(rule_a | rule_b | rule_c, NEG_INF)
 
     # d) the first sampled token is a timestamp, bounded by max_initial
-    if is_first:
-        logits = logits.masked_fill(vocab_ids < ts_begin, NEG_INF)
+    if any_first:
+        first_rule = vocab_ids < ts_begin
         if max_initial_ts_index >= 0:
-            logits = logits.masked_fill(
-                vocab_ids > ts_begin + max_initial_ts_index, NEG_INF)
+            first_rule = first_rule | (vocab_ids > ts_begin + max_initial_ts_index)
+        logits = logits.masked_fill(first_rule & is_first, NEG_INF)
 
     # e) if the total timestamp probability outweighs the best text token,
     #    sample a timestamp
@@ -220,6 +227,13 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def open_unit(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit integers -> fp32 uniforms in the open (0, 1): the top 23 bits
+    plus one half, exact in fp32. (24 bits would round the top value up to
+    1.0, whose Gumbel noise is +inf: a uniformly random token.)"""
+    return ((bits >> 9).float() + 0.5) * 2.0 ** -23
+
+
 def gumbel_noise(seed: int, rows: torch.Tensor, pos: int,
                  n_vocab: int) -> torch.Tensor:
     """(len(rows), n_vocab) standard Gumbel noise; entry [i, v] is a pure
@@ -228,8 +242,7 @@ def gumbel_noise(seed: int, rows: torch.Tensor, pos: int,
     key = _mix32(_mix32(torch.tensor(seed & _MASK32, device=dev)) ^ (pos & _MASK32))
     row_key = _mix32(key ^ (rows.long() & _MASK32))
     bits = _mix32(_mix32(row_key[:, None] ^ torch.arange(n_vocab, device=dev)))
-    u = ((bits >> 8).float() + 0.5) * 2.0 ** -24  # 24 bits, open (0, 1)
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(open_unit(bits)))
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
@@ -261,6 +274,7 @@ def greedy_decode_core(
     use_timestamps: bool,
     prompt_len: int,
     kv_dtype: str = "bf16",
+    cache_dtype: str = "bf16",
     temperature: float = 0.0,
     seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -274,13 +288,11 @@ def greedy_decode_core(
     eot = cfg.eot_token
     total_len = prompt_len + sample_len
 
-    if kv_dtype == "int8":
-        cross_kv = dec_mod.precompute_cross_kv_int8(decoder, audio_features)
-    else:
-        cross_kv = dec_mod.precompute_cross_kv(decoder, audio_features)
+    cross_kv = dec_mod.precompute_cross(decoder, audio_features, kv_dtype)
     cache_len = min(-(-total_len // 128) * 128, cfg.n_text_ctx)
-    cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev,
-                                  ctx=cache_len)
+    cache = dec_mod.init_cache(cfg, b, audio_features.dtype, dev,
+                               ctx=cache_len, cache_dtype=cache_dtype)
+    self_kernel = dec_mod.use_self_kernel(cache)
     pad_len = torch.as_tensor(pad_len, device=dev)
 
     initial_tokens = initial_tokens.to(device=dev, dtype=torch.long)
@@ -315,7 +327,8 @@ def greedy_decode_core(
         tokens[:, pos] = tok
 
         next_logits, cache = dec_mod.decode_step(
-            decoder, tok[:, None], cross_kv, cache, pos, valid_from=pad_len)
+            decoder, tok[:, None], cross_kv, cache, pos, valid_from=pad_len,
+            self_kernel=self_kernel)
         logits = next_logits[:, 0]
         if bool(finished.all()):
             break
@@ -334,7 +347,8 @@ def _detect_language_core(decoder: dec_mod.TextDecoder,
     cross_kv = dec_mod.precompute_cross_kv(decoder, audio_features)
     cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev)
     sot = torch.full((b, 1), cfg.sot_token, dtype=torch.long, device=dev)
-    logits, _ = dec_mod.decode_step(decoder, sot, cross_kv, cache, 0)
+    logits, _ = dec_mod.decode_step(decoder, sot, cross_kv, cache, 0,
+                                    self_kernel=dec_mod.use_self_kernel(cache))
     logits = logits[:, 0]  # (B, V) fp32
 
     lo, hi = cfg.lang_token_start, cfg.lang_token_start + cfg.n_langs
@@ -513,7 +527,8 @@ def decode(
     initial = torch.tensor(initial)
     core_kw = dict(sample_len=sample_len,
                    use_timestamps=not options.without_timestamps,
-                   prompt_len=prompt_len, kv_dtype=options.kv_dtype)
+                   prompt_len=prompt_len, kv_dtype=options.kv_dtype,
+                   cache_dtype=options.cache_dtype)
     use_beam = options.beam_size is not None and options.temperature == 0.0
     if use_beam and per_sample_prompt:
         raise ValueError(

@@ -5,9 +5,16 @@ One module serves teacher forcing over a whole sequence
 (`decoder_forward`) and incremental decoding against a preallocated KV
 cache (`decode_step`). Caches keep the JAX package's d-major layout
 (L, B, H, D, C), so attention reads K/V as stored ("bthd,bhds->bhts").
-Cross-attention K/V over the 1500 audio positions are computed once per
-window, in bf16 (the model dtype) or int8 with per-(b, h, position) column
-scales that are dequantised inline on read.
+The self-attention cache is bf16/fp32 (`KVCache`) or int8 with
+per-(b, h, position) column scales (`QuantKVCache`); cross-attention K/V
+over the 1500 audio positions are computed once per window, in the model
+dtype or int8 (`QuantCrossKV`).
+
+Single-token steps on the card run the Hopper decode kernels: `sqa_int8`
+(K6) for int8 cross-attention and the int8 self-cache, `sqa_self` (K3) for
+a bf16 self-cache when `self_kernel=True`. Prefill (T > 1) and every CPU
+step keep the JAX package's math: inline dequantisation, and K3's plain
+version only with `self_kernel=True`.
 
 Unlike JAX, `decode_step` writes this step's K/V into the cache in place
 and returns the same cache object.
@@ -21,8 +28,12 @@ import torch
 from torch import nn
 
 from ..config import WhisperConfig
+from ..ops.sqa_int8 import LayerAttend, sqa_int8_layers
+from ..ops.sqa_self import sqa_self_layers
 from .layers import (MLP, Attention, LayerNorm, frozen, layer_norm,
                      layer_slice, merge_heads, self_attention, split_heads)
+
+Position = Union[int, torch.Tensor]
 
 
 class KVCache(NamedTuple):
@@ -30,6 +41,16 @@ class KVCache(NamedTuple):
 
     k: torch.Tensor
     v: torch.Tensor
+
+
+class QuantKVCache(NamedTuple):
+    """int8 self-attention cache with per-(b, h, position) column scales;
+    the same d-major geometry as KVCache."""
+
+    k8: torch.Tensor  # (L, B, H, D, C) int8
+    ks: torch.Tensor  # (L, B, H, 1, C) fp32
+    v8: torch.Tensor
+    vs: torch.Tensor
 
 
 class CrossKV(NamedTuple):
@@ -73,18 +94,54 @@ class TextDecoder(nn.Module):
         self.ln = LayerNorm(p["ln"])
 
 
-def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
-                  device: torch.device, ctx: Optional[int] = None) -> KVCache:
+def _cache_shape(cfg: WhisperConfig, batch: int, ctx: Optional[int]) -> tuple:
     """ctx: cache length, at most (and by default) the 448 text context."""
     ctx = cfg.n_text_ctx if ctx is None else min(ctx, cfg.n_text_ctx)
-    shape = (cfg.n_text_layer, batch, cfg.n_text_head, cfg.text_head_dim, ctx)
+    return (cfg.n_text_layer, batch, cfg.n_text_head, cfg.text_head_dim, ctx)
+
+
+def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
+                  device: torch.device, ctx: Optional[int] = None) -> KVCache:
+    shape = _cache_shape(cfg, batch, ctx)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def gather_cache(cache: KVCache, idx: torch.Tensor) -> KVCache:
+def init_kv_cache_int8(cfg: WhisperConfig, batch: int, device: torch.device,
+                       ctx: Optional[int] = None) -> QuantKVCache:
+    """int8 variant of init_kv_cache (DecodingOptions.cache_dtype="int8")."""
+    shape = _cache_shape(cfg, batch, ctx)
+    sshape = shape[:3] + (1, shape[-1])
+    return QuantKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(sshape, dtype=torch.float32, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
+def init_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
+               device: torch.device, ctx: Optional[int] = None,
+               cache_dtype: str = "bf16") -> Union[KVCache, QuantKVCache]:
+    """The decode loops' cache: int8 for cache_dtype="int8", else `dtype`
+    (the model's activation dtype, as in JAX)."""
+    if cache_dtype == "int8":
+        return init_kv_cache_int8(cfg, batch, device, ctx=ctx)
+    return init_kv_cache(cfg, batch, dtype, device, ctx=ctx)
+
+
+def use_self_kernel(cache: Union[KVCache, QuantKVCache]) -> bool:
+    """The loops' `self_kernel`: K3 for a bf16 cache on the card. JAX leaves
+    it off (a measured loss on the TPU); the H100's decode step is
+    launch-bound, and K3 replaces a string of small launches. fp32 caches
+    stay on the exact plain path."""
+    return (isinstance(cache, KVCache) and cache.k.dtype == torch.bfloat16
+            and cache.k.is_cuda)
+
+
+def gather_cache(cache: Union[KVCache, QuantKVCache],
+                 idx: torch.Tensor) -> Union[KVCache, QuantKVCache]:
     """Reorder the cache's batch rows (beam-search source gather); a copy."""
-    return KVCache(cache.k[:, idx], cache.v[:, idx])
+    return type(cache)(*(t[:, idx] for t in cache))
 
 
 def to_dmajor(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -99,6 +156,12 @@ def quantize_kv_column(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(x32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-12)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def dequantize_kv_column(x8: torch.Tensor, scale: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """Inline dequantisation on read: int8 values times column scales."""
+    return (x8.float() * scale).to(dtype)
 
 
 def precompute_cross_kv(decoder: TextDecoder,
@@ -124,6 +187,15 @@ def precompute_cross_kv_int8(decoder: TextDecoder,
     return QuantCrossKV(*(torch.stack(t) for t in zip(*parts)))
 
 
+def precompute_cross(decoder: TextDecoder, audio_features: torch.Tensor,
+                     kv_dtype: str = "bf16") -> Union[CrossKV, QuantCrossKV]:
+    """The decode loops' cross-KV: int8 for kv_dtype="int8", else the
+    features' dtype."""
+    if kv_dtype == "int8":
+        return precompute_cross_kv_int8(decoder, audio_features)
+    return precompute_cross_kv(decoder, audio_features)
+
+
 def attention_dmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, T, H, D) against d-major k, v (B, H, D, S); mask broadcastable
@@ -139,16 +211,19 @@ def attention_dmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def embed_tokens(decoder: TextDecoder, tokens: torch.Tensor, pos_offset: int,
+def embed_tokens(decoder: TextDecoder, tokens: torch.Tensor,
+                 pos_offset: Position,
                  valid_from: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Token + learned-position embedding. Cache slot i holds logical position
     i - valid_from (left-pad bucketing); padded slots clamp to position 0 and
-    are masked out of attention anyway. valid_from: int or (B,) per row."""
+    are masked out of attention anyway. pos_offset and valid_from: int or
+    (B,) per row."""
     b, t = tokens.shape
-    vf = torch.as_tensor(valid_from, device=tokens.device).reshape(-1, 1)
-    positions = torch.clamp(
-        pos_offset + torch.arange(t, device=tokens.device)[None] - vf,
-        0, decoder.cfg.n_text_ctx - 1).expand(b, t)
+    dev = tokens.device
+    pos = pos_offset.reshape(-1, 1) if torch.is_tensor(pos_offset) else pos_offset
+    vf = torch.as_tensor(valid_from, device=dev).reshape(-1, 1)
+    positions = torch.clamp(pos + torch.arange(t, device=dev)[None] - vf,
+                            0, decoder.cfg.n_text_ctx - 1).expand(b, t)
     return decoder.token_embedding[tokens] + decoder.positional_embedding[positions]
 
 
@@ -158,15 +233,54 @@ def final_logits(decoder: TextDecoder, x: torch.Tensor) -> torch.Tensor:
     return (x @ decoder.token_embedding.to(x.dtype).T).float()
 
 
+CacheIndex = Union[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _cache_index(pos_offset: Position, cols: int) -> CacheIndex:
+    """Where a step writes its K/V, computed once per step: the first
+    column (lockstep), or for (B,) per-row positions (rows, each row's
+    column clamped into the cache, (B, 1, 1) True where the column lies
+    inside the cache)."""
+    if not torch.is_tensor(pos_offset):
+        return pos_offset
+    rows = torch.arange(pos_offset.shape[0], device=pos_offset.device)
+    return (rows, pos_offset.clamp(max=cols - 1),
+            (pos_offset < cols).reshape(-1, 1, 1))
+
+
+def _cache_write(buf: torch.Tensor, l: int, val: torch.Tensor,
+                 where: CacheIndex) -> None:
+    """Write val (B, *, *, T) into layer l of buf (L, B, *, *, C) in place,
+    at `_cache_index(pos_offset, C)`.
+
+    Lockstep: columns [pos_offset, pos_offset + T). Per-row positions
+    (T == 1): row b at column pos_offset[b]; a row whose column lies past
+    the cache (a finished continuous-batching row at total_len == C) keeps
+    its contents, as JAX's out-of-range scatter drops the write. The two
+    advanced indices are separated by slices, so the indexed view is
+    (B, *, *).
+    """
+    if not isinstance(where, tuple):
+        buf[l, ..., where:where + val.shape[-1]] = val
+        return
+    rows, col, inside = where
+    buf[l, rows, :, :, col] = torch.where(inside, val[..., 0],
+                                          buf[l, rows, :, :, col])
+
+
 def _cross_attn(blk: DecoderBlock, x: torch.Tensor,
-                cross_kv: Union[CrossKV, QuantCrossKV], l: int) -> torch.Tensor:
+                cross_kv: Union[CrossKV, QuantCrossKV], l: int,
+                attend: Optional[LayerAttend] = None) -> torch.Tensor:
+    """attend: a single-token step's K6 entry over int8 cross K/V (on the
+    card), used instead of inline dequantisation."""
     p = blk.cross_attn
     q = split_heads(p.q(layer_norm(x, blk.cross_attn_ln)), p.n_head)
-    if isinstance(cross_kv, QuantCrossKV):
-        # inline dequantisation on read
-        xk = (cross_kv.k8[l].float() * cross_kv.ks[l]).to(x.dtype)
-        xv = (cross_kv.v8[l].float() * cross_kv.vs[l]).to(x.dtype)
-        out = attention_dmajor(q, xk, xv)
+    if attend is not None:
+        out = attend(q, l)
+    elif isinstance(cross_kv, QuantCrossKV):
+        k8, ks, v8, vs = (t[l] for t in cross_kv)
+        out = attention_dmajor(q, dequantize_kv_column(k8, ks, x.dtype),
+                               dequantize_kv_column(v8, vs, x.dtype))
     else:
         out = attention_dmajor(q, cross_kv.k[l], cross_kv.v[l])
     return p.out(merge_heads(out))
@@ -176,30 +290,72 @@ def decode_step(
     decoder: TextDecoder,
     tokens: torch.Tensor,  # (B, T) int64 — T tokens starting at pos_offset
     cross_kv: Union[CrossKV, QuantCrossKV],
-    cache: KVCache,
-    pos_offset: int,  # lockstep position of tokens[:, 0]
+    cache: Union[KVCache, QuantKVCache],
+    pos_offset: Position,  # int (lockstep) or (B,) per-row positions, T == 1
     valid_from: Union[int, torch.Tensor] = 0,  # slots [0, valid_from) are left-padding
-) -> Tuple[torch.Tensor, KVCache]:
+    self_kernel: bool = False,  # single-token self-attention through K3
+    # (`ops.sqa_self`: the kernel on the card, its plain version on the CPU),
+    # JAX's meaning; it computes in bf16 and needs a KVCache
+) -> Tuple[torch.Tensor, Union[KVCache, QuantKVCache]]:
     """Incremental decode: (logits (B, T, vocab) fp32, cache). The cache's
-    columns [pos_offset, pos_offset + T) are written in place."""
+    columns [pos_offset, pos_offset + T) are written in place.
+
+    With a (B,) pos_offset each row decodes at its own position (continuous
+    batching); that needs T == 1. Single-token steps on CUDA tensors run the
+    decode kernels: K6 for int8 cross K/V and for a QuantKVCache, K3 for a
+    KVCache when self_kernel is set.
+    """
     x = embed_tokens(decoder, tokens, pos_offset, valid_from)
     b, t, _ = x.shape
-    c = cache.k.shape[-1]
     dev = x.device
-    q_pos = pos_offset + torch.arange(t, device=dev)[None, :, None]  # (1,T,1)
-    k_pos = torch.arange(c, device=dev)[None, None, :]  # (1,1,C)
-    vf = torch.as_tensor(valid_from, device=dev).reshape(-1, 1, 1)
-    mask = ((k_pos <= q_pos) & (k_pos >= vf))[:, None]  # (B|1, 1, T, C)
+    rowpos = torch.is_tensor(pos_offset)
+    if rowpos and (t != 1 or tuple(pos_offset.shape) != (b,)):
+        raise ValueError(f"per-row positions need single-token decode and a "
+                         f"({b},) pos_offset; got T={t}, "
+                         f"{tuple(pos_offset.shape)}")
+    quant_self = isinstance(cache, QuantKVCache)
+    on_card = t == 1 and dev.type == "cuda"
+    c = cache[0].shape[-1]
+    where = _cache_index(pos_offset, c)
+    # the kernels' entries check the caches and bounds once per step
+    self_attend = cross_attend = None
+    if quant_self and on_card:
+        self_attend = sqa_int8_layers(*cache, pos_offset, valid_from)
+    elif self_kernel and t == 1 and not quant_self:
+        self_attend = sqa_self_layers(cache.k, cache.v, pos_offset, valid_from)
+    if on_card and isinstance(cross_kv, QuantCrossKV):
+        cross_attend = sqa_int8_layers(*cross_kv, cross_kv.k8.shape[-1] - 1, 0)
+    mask = None
+    if self_attend is None:
+        q_pos = (torch.as_tensor(pos_offset, device=dev).reshape(-1, 1, 1)
+                 + torch.arange(t, device=dev)[None, :, None])  # (B|1,T,1)
+        k_pos = torch.arange(c, device=dev)[None, None, :]  # (1,1,C)
+        vf = torch.as_tensor(valid_from, device=dev).reshape(-1, 1, 1)
+        mask = ((k_pos <= q_pos) & (k_pos >= vf))[:, None]  # (B|1, 1, T, C)
 
     for l, blk in enumerate(decoder.blocks):
         p = blk.attn
         h = layer_norm(x, blk.attn_ln)
         q = split_heads(p.q(h), p.n_head)
-        cache.k[l, ..., pos_offset:pos_offset + t] = to_dmajor(p.k(h), p.n_head)
-        cache.v[l, ..., pos_offset:pos_offset + t] = to_dmajor(p.v(h), p.n_head)
-        attn = attention_dmajor(q, cache.k[l], cache.v[l], mask=mask)
+        k_new = to_dmajor(p.k(h), p.n_head)
+        v_new = to_dmajor(p.v(h), p.n_head)
+        if quant_self:
+            for buf, val in zip(cache, (*quantize_kv_column(k_new),
+                                        *quantize_kv_column(v_new))):
+                _cache_write(buf, l, val, where)
+        else:
+            _cache_write(cache.k, l, k_new.to(cache.k.dtype), where)
+            _cache_write(cache.v, l, v_new.to(cache.v.dtype), where)
+        if self_attend is not None:
+            attn = self_attend(q, l)
+        elif quant_self:
+            k8, ks, v8, vs = (buf[l] for buf in cache)
+            attn = attention_dmajor(q, dequantize_kv_column(k8, ks, x.dtype),
+                                    dequantize_kv_column(v8, vs, x.dtype), mask=mask)
+        else:
+            attn = attention_dmajor(q, cache.k[l], cache.v[l], mask=mask)
         x = x + p.out(merge_heads(attn))
-        x = x + _cross_attn(blk, x, cross_kv, l)
+        x = x + _cross_attn(blk, x, cross_kv, l, cross_attend)
         x = x + blk.mlp(layer_norm(x, blk.mlp_ln))
     return final_logits(decoder, x), cache
 

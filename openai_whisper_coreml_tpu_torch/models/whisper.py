@@ -82,10 +82,15 @@ def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
                 seed: int = 0, quantize: Optional[str] = None,
                 device: torch.device | str | None = None) -> WhisperModel:
     """A WhisperModel of `cfg` with random weights made from `seed` on
-    `device` (cuda when available, else cpu). dtype defaults to bf16 on
-    cuda and fp32 on cpu; quantize="int8" gives weights-only int8 linears."""
+    `device`: cuda by default, the CPU only when the caller passes
+    device="cpu". dtype defaults to bf16 on cuda and fp32 on cpu;
+    quantize="int8" gives weights-only int8 linears."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on an NVIDIA GPU; pass "
+                "device='cpu' to build the model on the CPU")
+        device = "cuda"
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cpu" else torch.bfloat16

@@ -146,12 +146,45 @@ def test_cli_unported_flags_raise(flags, what):
         tcli.main(["a.wav"] + flags)
 
 
-def test_cli_cache_dtype_int8_raises(models, wav, monkeypatch):
-    _, tm = models
+def test_cli_cache_dtype_int8_raises(models, wav, tmp_path, monkeypatch):
+    """`--cache-dtype int8` no longer raises: both CLIs run the int8
+    self-attention cache (with int8 cross-KV) and write the same
+    transcript."""
+    jm, tm = models
+    monkeypatch.setattr("openai_whisper_coreml_tpu.load_model", lambda *a, **k: jm)
     monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model",
                         lambda *a, **k: tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main([wav, "--language", "en", "--cache-dtype", "int8"])
+    args = [wav, "--language", "en", "--cache-dtype", "int8", "--kv-dtype",
+            "int8", "--output-format", "all",
+            "--temperature-increment-on-fallback", "0",
+            "--logprob-threshold=-1e9", "--no-speech-threshold", "1.1"]
+    assert jcli.main(args + ["--output-dir", str(tmp_path / "j")]) == 0
+    assert tcli.main(args + ["--output-dir", str(tmp_path / "t")]) == 0
+    for fmt in ("txt", "srt", "vtt", "tsv"):
+        assert ((tmp_path / "t" / f"clip.{fmt}").read_text()
+                == (tmp_path / "j" / f"clip.{fmt}").read_text()), fmt
+    ours = json.loads((tmp_path / "t" / "clip.json").read_text())
+    ref = json.loads((tmp_path / "j" / "clip.json").read_text())
+    assert ours["segments"] and ([s["tokens"] for s in ours["segments"]]
+                                 == [s["tokens"] for s in ref["segments"]])
+
+
+def test_build_model_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """No silent CPU fallback: without a CUDA device, build_model/load_model
+    (and so the CLI) raise unless the caller passes device="cpu"."""
+    import openai_whisper_coreml_tpu_torch as wt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wt.load_model("tiny")
+    cfg = tiny_test_config(n_state=64, n_head=2, n_layer=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        wt.build_model(cfg)
+    model = wt.build_model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert model.decoder.token_embedding.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["a.wav", "--model", "tiny"])
 
 
 def test_cli_flags_match_jax():

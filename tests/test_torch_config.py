@@ -53,5 +53,11 @@ def test_port_imports_no_jax():
         assert not pattern.search(f.read_text()), f
     for f in files:
         text = f.read_text()
-        assert "scaled_dot_product_attention" not in text, f
         assert "torch.compile" not in text, f
+        if f.name == "chip_smoke.py":
+            # the smoke times PyTorch's SDPA as the library reference of the
+            # kernel table (`library_ms`); every call of it is inside a timing
+            calls = re.findall(r"(.{0,16})F\.scaled_dot_product_attention\(", text)
+            assert calls and all(c.endswith("cuda_ms(lambda: ") for c in calls), f
+        else:
+            assert "scaled_dot_product_attention" not in text, f

@@ -132,11 +132,18 @@ def test_logit_rules_match_jax(use_timestamps, step):
 @pytest.mark.parametrize("kw", [dict(beam_size=5), dict(temperature=0.4),
                                 dict(best_of=3), {}])
 def test_unported_options_raise(kw):
-    """Beam, sampling and best_of are ported; the int8 self-attention cache
-    is not, in any decoding mode."""
-    tdecoding.DecodingOptions(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecoding.DecodingOptions(cache_dtype="int8", **kw)
+    """Beam, sampling, best_of and the int8 self-attention cache are ported
+    in every decoding mode and take the JAX package's values; the cache
+    dtype is validated as JAX validates it. Only speculative decoding still
+    raises (test_decode_with_draft_raises)."""
+    for cache_dtype in ("bf16", "int8"):
+        ours = tdecoding.DecodingOptions(cache_dtype=cache_dtype, **kw)
+        ref = jdecoding.DecodingOptions(cache_dtype=cache_dtype, **kw)
+        assert (ours.cache_dtype, ours.beam_size, ours.temperature,
+                ours.best_of) == (ref.cache_dtype, ref.beam_size,
+                                  ref.temperature, ref.best_of)
+    with pytest.raises(ValueError, match="cache_dtype"):
+        tdecoding.DecodingOptions(cache_dtype="fp8", **kw)
 
 
 def test_option_validation_matches_jax():

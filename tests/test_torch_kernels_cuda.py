@@ -1,5 +1,5 @@
-"""The Hopper kernels (flash attention, log-mel) against their plain
-versions, on the card.
+"""The Hopper kernels (flash attention, log-mel, decode self-attention K3,
+int8 single-query attention K6) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere. The file
 imports no JAX, so it runs on a machine without it:
@@ -7,12 +7,29 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
 from openai_whisper_coreml_tpu_torch import audio as taudio
+from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+from openai_whisper_coreml_tpu_torch.models.whisper import build_model
 from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
 from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
+from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
+from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
+
+NO_CARD = "needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)"
+
+
+def _close(out, ref, dtype):
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+    else:
+        assert err.max().item() <= 2e-5
 
 
 @pytest.mark.cuda
@@ -21,7 +38,7 @@ from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
                                    (2, 100, 300, 2)])
 def test_kernel_matches_plain_version_on_card(shape, dtype, atol):
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)")
+        pytest.skip(NO_CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     b, tq, tk, h = shape
@@ -40,7 +57,7 @@ def test_kernel_matches_plain_version_on_card(shape, dtype, atol):
 @pytest.mark.cuda
 def test_kernel_reads_strided_views_and_rejects_other_shapes():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)")
+        pytest.skip(NO_CARD)
     g = torch.Generator(device="cuda").manual_seed(1)
     qkv = torch.randn(2, 300, 3, 4, 64, generator=g, device="cuda").bfloat16()
     q, k, v = qkv.unbind(2)  # (B, T, H, D) views with a 3x head stride
@@ -59,7 +76,7 @@ def test_kernel_reads_strided_views_and_rejects_other_shapes():
                                                    (1, 16_000 + 160 * 37, 128)])
 def test_mel_kernel_matches_plain_version_on_card(batch, n_samples, n_mels):
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)")
+        pytest.skip(NO_CARD)
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(batch, n_samples, generator=g, device="cuda") * 0.1
@@ -80,7 +97,7 @@ def test_mel_kernel_matches_plain_version_on_card(batch, n_samples, n_mels):
 @pytest.mark.cuda
 def test_mel_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)")
+        pytest.skip(NO_CARD)
     with pytest.raises(ValueError, match="n_mels % 4"):
         mk.log_mel_kernel(torch.zeros(1, 560, device="cuda"), 81)
     with pytest.raises(ValueError, match="160 T"):
@@ -94,3 +111,144 @@ def test_mel_kernel_rejects_what_it_does_not_take():
         x.data_ptr(), 560, 560, 1, 1, cw.data_ptr(), sw.data_ptr(), mk.BINS_PAD - 8,
         fbt.data_ptr(), ranges.data_ptr(), 80, out.data_ptr(), None)
     assert err == 1  # cudaErrorInvalidValue, before any launch
+
+
+def _bounds(b, c, g):
+    pos = torch.randint(c // 2, c + 1, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)  # c itself: clamped to the last column
+    return pos, torch.randint(0, 8, (b,), generator=g, device="cuda", dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 20, 256), (3, 20, 448), (2, 2, 7)])
+def test_sqa_self_matches_plain_version_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h, c = shape
+    q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, 64, c, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    for pos, vf in (_bounds(b, c, g), (c - 1, 0)):
+        before = ss.launches
+        out = ss.sqa_self(q, k, v, pos, vf)
+        torch.cuda.synchronize()
+        assert ss.launches == before + 1 and out.dtype == dtype
+        _close(out, ss.sqa_self_reference(q, k, v, pos, vf), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 20, 1500), (4, 20, 256), (2, 2, 9)])
+def test_sqa_int8_matches_plain_version_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    b, h, s = shape
+    q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
+    k8, ks = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    v8, vs = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    for pos, vf in (_bounds(b, s, g), (s - 1, 0), (torch.tensor(s // 2, device="cuda"), 1)):
+        before = si.launches
+        out = si.sqa_int8(q, k8, ks, v8, vs, pos, vf)
+        torch.cuda.synchronize()
+        assert si.launches == before + 1 and out.dtype == dtype
+        _close(out, si.sqa_int8_reference(q, k8, ks, v8, vs, pos, vf), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q = torch.zeros(2, 2, 64, device="cuda")
+    k8 = torch.zeros(2, 2, 64, 8, dtype=torch.int8, device="cuda")
+    ks = torch.ones(2, 2, 1, 8, device="cuda")
+    with pytest.raises(TypeError, match="int8 K/V"):
+        si.sqa_int8(q, k8.float(), ks, k8, ks, 7, 0)
+    with pytest.raises(ValueError, match="unit column stride"):
+        si.sqa_int8(q, k8.transpose(-1, -2).contiguous().transpose(-1, -2), ks,
+                    k8, ks, 7, 0)
+    with pytest.raises(ValueError, match="per-row bound"):
+        si.sqa_int8(q, k8, ks, k8, ks, torch.tensor([1, 2, 3], device="cuda"), 0)
+    with pytest.raises(ValueError, match="D=64"):
+        ss.sqa_self(torch.zeros(2, 2, 32, device="cuda"),
+                    *(torch.zeros(2, 2, 32, 8, device="cuda"),) * 2, 7, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_decode_step_on_card_launches_the_kernels(cache_dtype):
+    """Single-token fp32 steps with int8 cross-KV at per-row positions:
+    the card (K6, and K6 again for an int8 self-cache) gives the CPU's
+    logits; a bf16 cache with self_kernel=True runs K3 per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2, n_audio_ctx=64)
+    cpu = build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")  # the same weights on the card
+    feats = torch.randn(3, 64, cfg.n_audio_state, generator=torch.Generator().manual_seed(5))
+    toks = torch.randint(0, cfg.timestamp_begin, (3, 4),
+                         generator=torch.Generator().manual_seed(6))
+    pos = torch.tensor([4, 6, 9])
+    logits = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = model.device
+        cross = dec_mod.precompute_cross_kv_int8(model.decoder, feats.to(dev))
+        cache = dec_mod.init_cache(cfg, 3, torch.float32, dev, ctx=16,
+                                   cache_dtype=cache_dtype)
+        dec_mod.decode_step(model.decoder, toks.to(dev), cross, cache, 0)
+        before = si.launches
+        out, _ = dec_mod.decode_step(model.decoder, toks[:, :1].to(dev), cross,
+                                     cache, pos.to(dev), valid_from=1)
+        per_step = 2 if cache_dtype == "int8" else 1
+        assert si.launches - before == (cfg.n_text_layer * per_step if dev.type == "cuda"
+                                        else 0)
+        logits[name] = out.cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0, atol=1e-4)
+    if cache_dtype == "bf16":
+        cache = dec_mod.init_kv_cache(cfg, 3, torch.bfloat16, "cuda", ctx=16)
+        gpu_bf16 = build_model(cfg, dtype=torch.bfloat16, seed=0)
+        cross = dec_mod.precompute_cross_kv_int8(gpu_bf16.decoder, feats.cuda().bfloat16())
+        assert dec_mod.use_self_kernel(cache)
+        before = ss.launches
+        dec_mod.decode_step(gpu_bf16.decoder, toks[:, :1].cuda(), cross, cache,
+                            pos.cuda(), self_kernel=True)
+        assert ss.launches == before + cfg.n_text_layer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sqa_self", "sqa_int8"])
+def test_step_entries_match_the_wrappers_on_card(kernel):
+    """decode_step's per-step entries launch the same kernel as the per-call
+    wrappers, with the layer's pointers: equal outputs on every layer, one
+    launch per call, per-row bounds; a strided q takes the wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, s, n_layers = 3, 20, 300, 4
+    k, v = (torch.randn(n_layers, b, h, 64, s, generator=g, device="cuda")
+            for _ in range(2))
+    pos, vf = _bounds(b, s, g)
+    if kernel == "sqa_self":
+        stacked, mod, wrapper = (k.bfloat16(), v.bfloat16()), ss, ss.sqa_self
+        attend = ss.sqa_self_layers(*stacked, pos, vf)
+    else:
+        stacked = (*dec_mod.quantize_kv_column(k), *dec_mod.quantize_kv_column(v))
+        mod, wrapper = si, si.sqa_int8
+        attend = si.sqa_int8_layers(*stacked, pos, vf)
+    q = torch.randn(b, 1, h, 64, generator=g, device="cuda").bfloat16()
+    for l in range(n_layers):
+        before = mod.launches
+        out = attend(q, l)
+        assert mod.launches == before + 1 and out.shape == q.shape
+        want = wrapper(q[:, 0], *(t[l] for t in stacked), pos, vf)[:, None]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+    strided = torch.randn(b, h, 1, 64, generator=g, device="cuda").bfloat16().transpose(1, 2)
+    torch.testing.assert_close(attend(strided, 1),
+                               wrapper(strided[:, 0], *(t[1] for t in stacked), pos,
+                                       vf)[:, None], rtol=0, atol=0)
+    with pytest.raises(IndexError):
+        attend(q, n_layers)

@@ -45,6 +45,16 @@ def test_sampler_total_variation(temperature):
     assert tv <= 0.02, tv
 
 
+def test_uniforms_stay_inside_the_open_unit_interval():
+    """The extreme 32-bit values map strictly inside (0, 1), so the Gumbel
+    noise is finite: at 24 bits the top value rounded to 1.0 in fp32 and
+    gave +inf noise, a uniformly random token about once in 2^24 draws."""
+    u = tdecoding.open_unit(torch.tensor([0, 1, 2**31, 2**32 - 2, 2**32 - 1]))
+    assert u.dtype == torch.float32
+    assert (u > 0).all() and (u < 1).all() and (u[1:] >= u[:-1]).all()
+    assert torch.isfinite(-torch.log(-torch.log(u))).all()
+
+
 def test_sampler_is_a_function_of_seed_row_and_position():
     noise = tdecoding.gumbel_noise(3, torch.arange(8), 17, 100)
     again = tdecoding.gumbel_noise(3, torch.tensor([5, 2]), 17, 100)
