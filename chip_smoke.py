@@ -10,6 +10,10 @@ Phases (each raises, so the script exits non-zero, on failure):
      time both (CUDA events, alternating), with the one PyTorch call that
      computes the same function where there is one:
        K1 flash attention at the encoder's geometry (bf16, fp32, ragged);
+       K1's causal mode at the decoder's (4,448,20,64) and ragged T = 37
+       and 130, and K5 (the same kernel past 1536 keys) at (2,2048,20,64)
+       non-causal and causal, bf16 and fp32, timed beside
+       scaled_dot_product_attention;
        K4 log-mel at (4, 480 000) x 128, (3, 112 000) x 80 and a one-hour
        bucket (1, 61 920 000) x 128, with both's peak device memory;
        K3 decode self-attention at (4,20,64,256) with per-row bounds and a
@@ -21,6 +25,10 @@ Phases (each raises, so the script exits non-zero, on failure):
      on the card, inline dequantisation on the CPU), transcribe of 50 s,
      and transcribe_batch of 20, 35 and 50 s clips under both schedulers;
      tokens and segments must be equal, and static equal to continuous;
+     the flash wrapper's gradients against autograd through the plain
+     attention; fp32 training CPU against card (four micro-steps with
+     accumulation, a cosine schedule and trainable="^decoder", then two
+     LoRA steps on an int8 base): losses and every leaf;
   5. the main paths on large-v3 with random bf16/int8 weights: serve (a
      batch of 4 windows at 224 tokens, then 1 at 64, then language ID),
      transcribe of ~70 s, serve_batch (six requests, static scheduler with
@@ -33,12 +41,21 @@ Phases (each raises, so the script exits non-zero, on failure):
      with the plain versions in the kernels' place: kernels and device-busy
      ms per step, and wall ms per step; the host's share of each kernel
      wrapper (per-call host time of each entry, and a cProfile of the
-     step).
+     step);
+  7. fine-tuning large-v3 (random bf16 weights) through `finetune.main` on
+     a synthetic corpus: a full fine-tune with --flash, accumulation, a
+     cosine schedule and held-out evaluation; LoRA rank 8 with a saved
+     train state and a --resume; then the merged checkpoint decodes one
+     window. Per-step wall seconds, peak device memory and one step's
+     device-busy share (torch.profiler).
 Each main path starts with every kernel's launch count at 0 and checks it
 against what the path ran: one K4 launch per log-mel call, one K1 launch
 per encoder layer per encode, n_text_layer K3 launches per single-token
 step over a bf16 cache, n_text_layer K6 launches per single-token step
-with int8 cross-KV and as many again with an int8 self-cache.
+with int8 cross-KV and as many again with an int8 self-cache; in training
+one K1 launch per encoder layer and one K1-causal launch per decoder layer
+per forward, and as many again for each rematerialised recompute. No main
+path runs K5: Whisper's attention never spans more than 1536 keys.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Needs no network and no JAX.
@@ -204,13 +221,108 @@ def check_flash(fa) -> dict:
     log(f"flash (4,1500,20,64) bf16 on {card()}: kernel {kernel_ms:.4f} ms "
         f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms (runs: {times})")
-    return {"name": "flash_attention", "route": "cuda",
+    return {"name": "flash_attention", "tpu_kernel": "K1", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/flash_attention.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/flash_attention.py:57",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
             "plain_ms": plain_ms,
             **bound(4 * b * t * h * d * 2, 4 * b * h * t * t * d, "bf16"),
             "library_ms": library_ms}
+
+
+def causal_pairs(t: int) -> int:
+    """(query, key) pairs a causal T x T attention keeps."""
+    return t * (t + 1) // 2
+
+
+def check_flash_causal(fa) -> list:
+    """K1's causal mode and K5 (Tk > 1536, one CUDA kernel) against their
+    plain version on the same inputs; timed at the decoder's (4,448,20,64)
+    causal and at (2,2048,20,64) non-causal and causal, beside
+    scaled_dot_product_attention(is_causal=...) as the library column.
+    Returns the two JSON records."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [((4, 448, 20), True, "K1-causal"), ((2, 37, 20), True, "K1-causal"),
+             ((1, 130, 20), True, "K1-causal"), ((2, 2048, 20), False, "K5"),
+             ((2, 2048, 20), True, "K5")]
+    worst = {"K1-causal": 0.0, "K5": 0.0}
+    timed = {}
+    for (b, t, h), causal, which in cases:
+        base = [torch.randn(b, t, h, 64, generator=g, device="cuda") for _ in range(3)]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in base)
+            out = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            tag = f"{which} {(b, t, h, 64)} causal={causal} {dtype}"
+            err = check_errors(f"flash kernel vs plain {tag}", out,
+                               fa.flash_attention_reference(q, k, v, causal=causal),
+                               bf16)
+            if bf16:
+                worst[which] = max(worst[which], err)
+                if t in (448, 2048):
+                    timed[(which, causal)] = (q, k, v)
+    records = []
+    for (which, causal), (q, k, v) in timed.items():
+        kernel_ms, plain_ms, times = alternate(
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+            lambda: fa.flash_attention(q, k, v, causal=causal))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                           "fa_fwd_bf16")
+        b, t, h, d = q.shape
+        pairs = causal_pairs(t) if causal else t * t
+        lim = bound(4 * b * t * h * d * 2, 4 * b * h * pairs * d, "bf16")
+        log(f"{which} flash {tuple(q.shape)} causal={causal} bf16 on {card()}: "
+            f"kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+            f"bound {lim['bound_ms']:.5f} ms ({lim['bound_by']}) (runs: {times})")
+        record = {"ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  **lim, "library_ms": library_ms, "shape": list(q.shape),
+                  "causal": causal}
+        if which == "K1-causal":
+            records.append({"name": "flash_attention_causal", "tpu_kernel": "K1-causal",
+                            "replaces": "openai_whisper_coreml_tpu/ops/flash_attention.py:81",
+                            "max_abs_err": worst[which], **record})
+        elif causal:
+            records[-1]["causal_run"] = record
+        else:
+            records.append({"name": "flash_attention_online", "tpu_kernel": "K5",
+                            "replaces": "openai_whisper_coreml_tpu/ops/flash_attention.py:127",
+                            "max_abs_err": worst[which], **record})
+    for r in records:
+        r.update(route="cuda",
+                 source="openai_whisper_coreml_tpu_torch/csrc/flash_attention.cu")
+    return records
+
+
+def check_flash_grad(fa) -> None:
+    """The autograd Function on the card, fp32: q/k/v gradients (kernel
+    forward, recompute backward) against autograd through attention_core,
+    causal and not."""
+    from openai_whisper_coreml_tpu_torch.models.layers import attention_core
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for causal in (False, True):
+        qkv = [torch.randn(2, 96, 4, 64, generator=g, device="cuda").requires_grad_()
+               for _ in range(3)]
+        gout = torch.randn(2, 96, 4, 64, generator=g, device="cuda")
+        before = fa.launches + fa.launches_causal
+        out = fa.flash_attention(*qkv, causal=causal)
+        got = torch.autograd.grad(out, qkv, gout)
+        mask = (torch.ones(96, 96, dtype=torch.bool, device="cuda").tril()
+                if causal else None)
+        want = torch.autograd.grad(attention_core(*qkv, mask=mask), qkv, gout)
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        scale = max(b.abs().max().item() for b in want)
+        log(f"flash gradient vs attention_core (2,96,4,64) fp32 causal={causal}: "
+            f"max_abs dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+            f"(scale {scale:.3e})")
+        if (fa.launches + fa.launches_causal - before != 1
+                or max(errs) > 1e-5 * max(1.0, scale)):
+            raise AssertionError(f"flash gradient disagrees (causal={causal})")
 
 
 def peak_bytes(fn) -> int:
@@ -282,7 +394,7 @@ def check_mel(mk) -> dict:
             f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}) for the dense DFT "
             f"the kernel computes, as the TPU kernel does")
         if record is None:
-            record = {"name": "log_mel", "route": "cuda",
+            record = {"name": "log_mel", "tpu_kernel": "K4", "route": "cuda",
                       "source": "openai_whisper_coreml_tpu_torch/csrc/mel.cu",
                       "replaces": "openai_whisper_coreml_tpu/ops/mel_kernel.py:51",
                       "ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -347,7 +459,7 @@ def check_sqa_self(ss) -> dict:
         f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
         f"{lim['bound_ms']:.5f} ms (runs: {times})")
-    return {"name": "sqa_self", "route": "cuda",
+    return {"name": "sqa_self", "tpu_kernel": "K3", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/sqa_self.py:39",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
@@ -395,7 +507,7 @@ def check_sqa_int8(si) -> dict:
         f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{lim['bound_ms']:.5f} ms; no single PyTorch call computes it "
         f"(runs: {times})")
-    return {"name": "sqa_int8", "route": "cuda",
+    return {"name": "sqa_int8", "tpu_kernel": "K6", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/sqa_int8.py:59",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
@@ -511,19 +623,349 @@ def fp32_parity(wt, fa, mk, si):
     log("fp32 transcribe_batch: static == continuous")
 
 
+def host_copy(x):
+    """A copy on the host of a tensor, or of the tensors in a dict."""
+    if isinstance(x, dict):
+        return {k: host_copy(v) for k, v in x.items()}
+    return x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x
+
+
+def snapshot(model) -> dict:
+    """The model's parameters by name, copied to the host one by one (no
+    device memory beyond the model's own)."""
+    return host_copy(dict(model.named_parameters()))
+
+
+def remat_factor(encoder) -> int:
+    """Flash launches per encoder layer in a rematerialised train step: 2
+    when the backward reaches the encoder (it has trainable weights), else
+    1 (the mel needs no gradient)."""
+    return 2 if any(p.requires_grad for p in encoder.parameters()) else 1
+
+
+def train_parity(fa) -> None:
+    """fp32 training on one tiny model (full 1500-position audio context,
+    head dim 64), CPU against card, the card's attention through K1 and
+    K1's causal mode: four micro-steps (two updates, accum_steps=2, cosine
+    with warmup, trainable="^decoder"), then two LoRA steps on an int8
+    base. Losses, and every leaf after the steps, within the tolerance of
+    the CPU tests against JAX (trained leaves 1e-2 * lr, frozen leaves
+    bit-identical); the encoder's attn.q.w gets a nonzero gradient through
+    the kernel, equal to the plain path's."""
+    from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+    from openai_whisper_coreml_tpu_torch.lora import add_lora
+    from openai_whisper_coreml_tpu_torch.models.whisper import WhisperModel, build_model
+    from openai_whisper_coreml_tpu_torch.params import params_tree
+    from openai_whisper_coreml_tpu_torch.quantize import quantize_params
+    from openai_whisper_coreml_tpu_torch.tokenizer import get_tokenizer
+    from openai_whisper_coreml_tpu_torch.train import (TrainConfig, make_batch,
+                                                       make_train_step)
+
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    tok = get_tokenizer(cfg)
+    rng = np.random.default_rng(8)
+    batches = [make_batch(cfg, tok, rng.standard_normal((2, cfg.n_mels, 3000))
+                          .astype(np.float32), [f"one {i} two", f"three {i}"],
+                          max_len=12) for i in range(4)]
+    lr = 1e-2
+    base = build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    lora_tree = add_lora(quantize_params(params_tree(base), min_size=0), rank=4)
+    runs = (("decoder, accum 2, cosine", TrainConfig(
+                learning_rate=lr, flash=True, accum_steps=2, schedule="cosine",
+                warmup_steps=1, total_steps=3, trainable="^decoder"),
+             lambda: build_model(cfg, dtype=torch.float32, seed=0, device="cpu"), 4),
+            ("LoRA on int8", TrainConfig(learning_rate=lr, flash=True,
+                                         trainable="lora_"),
+             lambda: WhisperModel(cfg, copy.deepcopy(lora_tree)), 2))
+    for name, tc, make, micro in runs:
+        result = {}
+        for dev in ("cpu", "cuda"):
+            init_fn, step_fn = make_train_step(cfg, tc)
+            model, state = init_fn(make().to(dev))
+            before = snapshot(model)
+            counts = (fa.launches, fa.launches_causal)
+            losses = [float(step_fn(model, state, *batch)[2]["loss"])
+                      for batch in batches[:micro]]
+            launched = (fa.launches - counts[0], fa.launches_causal - counts[1])
+            trained = {n for n, p in model.named_parameters() if p.requires_grad}
+            result[dev] = (losses, snapshot(model), before, trained, launched)
+        (l_cpu, p_cpu, b_cpu, trained, _), (l_gpu, p_gpu, _, _, launched) = (
+            result["cpu"], result["cuda"])
+        # remat: a train step runs a block's kernel twice (the forward and
+        # the recompute in the backward) where the backward reaches the
+        # block: every decoder block, encoder blocks only when they train
+        want = (remat_factor(model.encoder) * micro * cfg.n_audio_layer,
+                2 * micro * cfg.n_text_layer)
+        worst = max((p_gpu[k] - p_cpu[k]).abs().max().item() for k in trained)
+        frozen_ok = all(torch.equal(p_gpu[k], b_cpu[k]) and torch.equal(p_cpu[k], b_cpu[k])
+                        for k in p_cpu if k not in trained)
+        moved = all(not torch.equal(p_gpu[k], b_cpu[k]) for k in trained)
+        log(f"fp32 train parity ({name}): losses cpu {l_cpu} card {l_gpu}; trained "
+            f"leaves max |card - cpu| {worst:.3e} (limit {1e-2 * lr:.0e}); frozen "
+            f"bit-identical {frozen_ok}; trained moved {moved}; launches K1, "
+            f"K1-causal {launched} (expected {want})")
+        if (not np.allclose(l_gpu, l_cpu, rtol=1e-4) or worst > 1e-2 * lr
+                or not frozen_ok or not moved or launched != want):
+            raise AssertionError(f"fp32 train parity failed ({name})")
+
+    # the gradient the ctypes output used to lose
+    model = build_model(cfg, dtype=torch.float32, seed=0, device="cuda")
+    w = model.encoder.blocks[0].attn.q.w
+    w.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mel = torch.randn(1, cfg.n_mels, 3000, generator=g, device="cuda")
+    proj = torch.randn(1, cfg.n_audio_ctx, cfg.n_audio_state, generator=g, device="cuda")
+    grads = {flash: torch.autograd.grad((model.encoder(mel, flash=flash) * proj).sum(),
+                                        [w])[0] for flash in (True, False)}
+    err = (grads[True] - grads[False]).abs().max().item()
+    scale = grads[False].abs().max().item()
+    log(f"encoder attn.q.w gradient through K1 vs plain attention: max_abs "
+        f"{err:.3e}, scale {scale:.3e}")
+    if not (grads[True].abs().max().item() > 0 and err <= 1e-4 * scale):
+        raise AssertionError("the encoder's q projection lost its gradient")
+
+
+def write_corpus(root: str, n: int) -> None:
+    """n speech-like WAVs of 4-11 s with a transcript each (flat layout)."""
+    from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
+
+    words = "the quick brown fox jumps over a lazy dog near seven green hills".split()
+    for i in range(n):
+        save_wav(os.path.join(root, f"u{i}.wav"), speechy(4 + i, 40 + i))
+        with open(os.path.join(root, f"u{i}.txt"), "w", encoding="utf-8") as f:
+            f.write(" ".join(words[(i + j) % len(words)] for j in range(5 + i)))
+
+
+@contextlib.contextmanager
+def finetune_probe(calls, record):
+    """Wrap finetune's building blocks for one run: count train steps and
+    eval batches into the flash layers they run (`calls`), log-mel calls,
+    time each step (synchronised), profile one step, and keep the model,
+    its start, and the saved and restored train states (`record`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openai_whisper_coreml_tpu_torch import audio as audio_mod
+    from openai_whisper_coreml_tpu_torch import finetune
+    from openai_whisper_coreml_tpu_torch import train
+    from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
+    from openai_whisper_coreml_tpu_torch.utils import checkpoint
+
+    def counted(fn, want, what):
+        """Run fn; its K1 and K1-causal launches must equal `want`."""
+        before = fa.launches, fa.launches_causal
+        out = fn()
+        got = fa.launches - before[0], fa.launches_causal - before[1]
+        record.setdefault("launches_per_step", []).append(got)
+        if got != want:
+            raise AssertionError(f"{what}: K1, K1-causal launches {got}, "
+                                 f"expected {want}")
+        calls["encoder_layers"] += got[0]
+        calls["causal_layers"] += got[1]
+        return out
+
+    real = (train.make_train_step, train.make_eval_step, audio_mod.log_mel_spectrogram,
+            checkpoint.save_train_state, finetune.restore)
+
+    def make_train_step(cfg, tc):
+        init_fn, step_fn = real[0](cfg, tc)
+        per_step = {}
+
+        def init(model):
+            record["model"] = model
+            record["start"] = snapshot(model)
+            out = init_fn(model)
+            # remat runs a block's kernel again in the backward
+            per_step["encoder"] = remat_factor(model.encoder) if tc.remat else 1
+            per_step["decoder"] = 2 if tc.remat else 1
+            return out
+
+        def step(*args):
+            profiled = len(record["step_s"]) == record.get("profile_step")
+            torch.cuda.synchronize()
+            # one launch per layer per forward, and one more per recompute
+            want = ((per_step["encoder"] * cfg.n_audio_layer,
+                     per_step["decoder"] * cfg.n_text_layer) if tc.flash else (0, 0))
+            with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                  else contextlib.nullcontext()) as prof:
+                t = time.perf_counter()
+                out = counted(lambda: step_fn(*args), want,
+                              f"train step {len(record['step_s']) + 1}")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            record["step_s"].append(wall)
+            if profiled:
+                # wall under the profiler (device activity only); the share
+                # against an unprofiled step of the same kind is in the log
+                busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+                record["profiled"] = {"step": len(record["step_s"]), "wall_s": wall,
+                                      "device_busy_s": busy, "busy_share": busy / wall,
+                                      "kernels": sum(
+                                          1 for e in prof.events()
+                                          if e.device_type == torch.autograd.DeviceType.CUDA)}
+            return out
+
+        return init, step
+
+    def make_eval_step(cfg, tc):
+        eval_fn = real[1](cfg, tc)
+
+        def run(*args):
+            want = (cfg.n_audio_layer, cfg.n_text_layer) if tc.flash else (0, 0)
+            return counted(lambda: eval_fn(*args), want, "evaluation batch")
+
+        return run
+
+    def log_mel_spectrogram(*args, **kw):
+        calls["log_mel"] += 1
+        return real[2](*args, **kw)
+
+    def save_train_state(path, model, opt_state=None, step=None):
+        real[3](path, model, opt_state=opt_state, step=step)
+        record["saved"] = (snapshot(model), host_copy(opt_state))
+
+    def restore(path, model, device):
+        opt_state, step = real[4](path, model, device)
+        record["restored"] = (snapshot(model), host_copy(opt_state))
+        return opt_state, step
+
+    record.setdefault("step_s", [])
+    train.make_train_step, train.make_eval_step = make_train_step, make_eval_step
+    audio_mod.log_mel_spectrogram = log_mel_spectrogram
+    checkpoint.save_train_state, finetune.restore = save_train_state, restore
+    try:
+        yield
+    finally:
+        (train.make_train_step, train.make_eval_step, audio_mod.log_mel_spectrogram,
+         checkpoint.save_train_state, finetune.restore) = real
+
+
+def states_equal(a, b) -> bool:
+    """Bit equality of two (params by path, optimizer state) pairs."""
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        return x == y
+
+    return same(a[0], b[0]) and same(a[1], b[1])
+
+
+def finetune_slice(kernels) -> None:
+    """large-v3 through `finetune.main` (random bf16 weights, seed 0) on a
+    synthetic corpus: (a) a full fine-tune with flash, accumulation, a
+    cosine schedule with warmup and held-out evaluation; (b) LoRA rank 8
+    for 2 steps with a saved train state, then --resume to step 3. Then the
+    merged checkpoint of (b) is loaded and decodes one window. Checks the
+    launches per step (K1 and K1-causal: each layer once per forward and
+    again in the remat recompute; K4 once per new utterance), finite
+    losses, that trained leaves moved and frozen ones are bit-identical,
+    and that the restored state equals the saved one bit for bit."""
+    from openai_whisper_coreml_tpu_torch import finetune, load_model
+    from openai_whisper_coreml_tpu_torch.config import get_config
+    from openai_whisper_coreml_tpu_torch.params import jax_path
+
+    cfg = get_config("large-v3")
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        write_corpus(corpus, 8)
+        out = os.path.join(tmp, "ckpt")
+        state_dir = os.path.join(tmp, "state")
+        common = [corpus, "--model", "large-v3", "--flash", "--batch-size", "4",
+                  "--log-every", "1", "--output", out]
+        runs = (("finetune full", ["--steps", "4", "--accum-steps", "2", "--schedule",
+                                   "cosine", "--warmup-steps", "1", "--holdout", "0.25",
+                                   "--eval-every", "2"], 4),
+                ("finetune LoRA", ["--lora-rank", "8", "--steps", "2", "--save-every",
+                                   "2", "--save-state", state_dir], 2),
+                ("finetune LoRA resumed", ["--lora-rank", "8", "--steps", "3",
+                                           "--resume", state_dir], 1))
+        records = {}
+        # profiled: the full run's last step (an optimizer update, like its
+        # second step, which runs unprofiled) and the resumed run's one step
+        profile_at = {"finetune full": 3, "finetune LoRA resumed": 0}
+        for name, flags, n_steps in runs:
+            record = records[name] = {"profile_step": profile_at.get(name)}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with main_path(name, kernels, cfg.n_text_layer,
+                           idle=("flash_attention_online", "sqa_self", "sqa_int8")
+                           ) as calls, finetune_probe(calls, record):
+                rc = finetune.main(common + flags)
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0 or len(record["step_s"]) != n_steps:
+                raise AssertionError(f"{name}: rc {rc}, {len(record['step_s'])} steps")
+            model, start = record["model"], record["start"]
+            end = snapshot(model)
+            trained = {n for n, p in model.named_parameters() if p.requires_grad}
+            if trained != {n for n, v in end.items() if ("lora_" in n if "LoRA" in name
+                                                         else v.is_floating_point())}:
+                raise AssertionError(f"{name}: unexpected trainable set")
+            moved = {jax_path(n) for n in trained if not torch.equal(end[n], start[n])}
+            frozen_same = all(torch.equal(end[n], start[n]) for n in end if n not in trained)
+            paths = {jax_path(n) for n in trained}
+            log(f"[{name}] {n_steps} steps on {card()}: wall s per step "
+                f"{[round(x, 3) for x in record['step_s']]}; peak device memory "
+                f"{peak / 2**30:.2f} GiB; profiled step {record.get('profiled')}; "
+                f"K1, K1-causal launches per train step and evaluation batch "
+                f"{record['launches_per_step']}; "
+                f"{len(moved)} of {len(paths)} trained leaves moved; frozen "
+                f"leaves bit-identical {frozen_same}")
+            # bf16 weights at 1.0 (layer-norm scales) move only by 2^-7 or more:
+            # far above one update at lr 1e-5, so those leaves stay put
+            still = sorted(paths - moved)
+            if not frozen_same or any(not k.endswith("ln/scale") and
+                                      not k.endswith("ln_post/scale") for k in still):
+                raise AssertionError(f"{name}: leaves that did not move {still}")
+            if name == "finetune LoRA resumed":
+                if not states_equal(records["finetune LoRA"]["saved"], record["restored"]):
+                    raise AssertionError("the restored train state differs from the saved")
+                log("restored train state equals the saved one bit for bit")
+            del record["model"], record["start"], model, start, end
+            torch.cuda.empty_cache()
+        final = out + "-final.safetensors"
+        with main_path("finetuned decode", kernels, cfg.n_text_layer,
+                       idle=SERVING_IDLE + ("sqa_int8",)) as calls:
+            model = load_model("large-v3", checkpoint=final, device="cuda")
+            result = model.decode(model.log_mel(speechy(30, 50)), language="en",
+                                  sample_len=48)
+        if not (result.tokens and all(0 <= t < cfg.n_vocab for t in result.tokens)
+                and np.isfinite(result.avg_logprob)):
+            raise AssertionError(f"decode of the fine-tuned checkpoint: {result}")
+        log(f"fine-tuned large-v3 ({os.path.getsize(final) / 1e9:.2f} GB checkpoint) "
+            f"decoded {len(result.tokens)} tokens")
+
+
 # launches of each kernel summed over the main paths
 TOTALS: dict = {}
 
 
+# kernels of a path that never launch there: K1's causal mode and K5 run only
+# in teacher forcing (training), K5 only beyond 1536 keys (never in Whisper)
+SERVING_IDLE = ("flash_attention_causal", "flash_attention_online")
+
+
+def reset_counts(kernels) -> None:
+    for mod, counter in kernels.values():
+        setattr(mod, counter, 0)
+
+
+def read_counts(kernels) -> dict:
+    return {k: getattr(mod, counter) for k, (mod, counter) in kernels.items()}
+
+
 @contextlib.contextmanager
-def main_path(name, kernels, n_text_layer, idle=()):
+def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
     """Count the path's kernel launches from 0, its encoder layers, log-mel
     calls and single-token decode steps; on exit check each kernel's count
     against what the path ran, and that every kernel but those in `idle`
-    launched."""
+    launched. A training path adds its flash layers to calls
+    ("encoder_layers", "causal_layers") and its log-mel calls itself."""
     from openai_whisper_coreml_tpu_torch.models.whisper import WhisperModel
 
-    calls = {"encode": 0, "encoder_layers": 0, "log_mel": 0}
+    calls = {"encode": 0, "encoder_layers": 0, "causal_layers": 0, "log_mel": 0}
     encode, log_mel = WhisperModel.encode, WhisperModel.log_mel
 
     def counting_encode(self, mel):
@@ -536,8 +978,7 @@ def main_path(name, kernels, n_text_layer, idle=()):
         return log_mel(self, audio)
 
     WhisperModel.encode, WhisperModel.log_mel = counting_encode, counting_log_mel
-    for mod in kernels.values():
-        mod.launches = 0
+    reset_counts(kernels)
     t = time.perf_counter()
     try:
         with counting_steps(calls):
@@ -546,8 +987,10 @@ def main_path(name, kernels, n_text_layer, idle=()):
     finally:
         WhisperModel.encode, WhisperModel.log_mel = encode, log_mel
     seconds = time.perf_counter() - t
-    launches = {k: mod.launches for k, mod in kernels.items()}
+    launches = read_counts(kernels)
     expected = {"flash_attention": calls["encoder_layers"],
+                "flash_attention_causal": calls["causal_layers"],
+                "flash_attention_online": 0,
                 "log_mel": calls["log_mel"],
                 "sqa_self": n_text_layer * calls["bf16_self_steps"],
                 "sqa_int8": n_text_layer * (calls["int8_self_steps"]
@@ -659,10 +1102,10 @@ def serve_batch_slice(wt, model, kernels):
     cfg = model.cfg
     seconds = (10, 20, 35, 50, 65, 70)
     audios = [speechy(s, 30 + i) for i, s in enumerate(seconds)]
-    runs = (("serve_batch static", dict(scheduler="static"), ()),
+    runs = (("serve_batch static", dict(scheduler="static"), SERVING_IDLE),
             ("serve_batch continuous", dict(scheduler="continuous",
                                             cache_dtype="int8", chunk_tokens=16),
-             ("sqa_self",)))
+             SERVING_IDLE + ("sqa_self",)))
     for name, kw, idle in runs:
         opts = wt.ServeOptions(batch_size=4, sample_len=48, language="en",
                                temperature=(0.0, 0.4), kv_dtype="int8", **kw)
@@ -884,16 +1327,26 @@ def main() -> int:
     from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
     from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
 
+    t_start = time.perf_counter()
     log(card())
     log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {"flash_attention": fa, "log_mel": mk, "sqa_self": ss, "sqa_int8": si}
+    # name -> (wrapper module, its launch counter); K1, its causal mode and
+    # K5 are one CUDA kernel whose wrapper counts each mode apart
+    kernels = {"flash_attention": (fa, "launches"),
+               "flash_attention_causal": (fa, "launches_causal"),
+               "flash_attention_online": (fa, "launches_online"),
+               "log_mel": (mk, "launches"), "sqa_self": (ss, "launches"),
+               "sqa_int8": (si, "launches")}
 
     # by library name; K3 (ss) and K6 (si) are entry points of one library
     build_kernels({"flash_attention": fa, "mel": mk, "sqa": ss})
-    records = [check_flash(fa), check_mel(mk), check_sqa_self(ss), check_sqa_int8(si)]
+    records = [check_flash(fa), *check_flash_causal(fa), check_mel(mk),
+               check_sqa_self(ss), check_sqa_int8(si)]
+    check_flash_grad(fa)
     fp32_parity(wt, fa, mk, si)
+    train_parity(fa)
 
     t0 = time.perf_counter()
     model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
@@ -908,9 +1361,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     cli_slice(kernels)
+    finetune_slice(kernels)
 
     for record in records:
         record["launches"] = TOTALS[record["name"]]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card())
     print(json.dumps({"ok": True, "device": {

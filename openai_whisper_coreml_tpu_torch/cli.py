@@ -2,12 +2,12 @@
 (port of `cli.py`).
 
 Files of any length in, transcripts out (txt/srt/vtt/tsv/json), or language
-ID with `--task lang-id`. The flags are the JAX package's. Those whose
-module is not ported yet raise with a message naming ROADMAP.md:
-`--checkpoint`, `--stream`, `--draft-model`, `--word-timestamps`,
-`--profile-dir` and `--tensor-parallel` above 1. Left out are the JAX
-CLI's `--batch`, which it never reads, and `--draft-checkpoint` and
-`--spec-k`, which only `--draft-model` reads. The model is built on the
+ID with `--task lang-id`. The flags are the JAX package's; `--checkpoint`
+reads a `.safetensors` file. Those whose module is not ported yet raise
+with a message naming ROADMAP.md: `--stream`, `--draft-model`,
+`--word-timestamps`, `--profile-dir` and `--tensor-parallel` above 1.
+Left out are the JAX CLI's `--batch`, which it never reads, and
+`--draft-checkpoint` and `--spec-k`, which only `--draft-model` reads. The model is built on the
 card; without one, loading it raises.
 """
 
@@ -32,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "format when the native decoder is built)")
     p.add_argument("--model", default="tiny", help="model size name")
     p.add_argument("--checkpoint", default=None,
-                   help="converted checkpoint path (not ported yet)")
+                   help="converted or fine-tuned .safetensors checkpoint")
     p.add_argument("--vocab", default=None,
                    help="tokenizer ranks file (tiktoken) or HF vocab.json")
     p.add_argument("--task", choices=("transcribe", "translate", "lang-id"),
@@ -110,7 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _UNPORTED = (
-    ("checkpoint", "--checkpoint (checkpoint files)"),
     ("stream", "--stream (stream.py)"),
     ("draft_model", "--draft-model (speculative.py)"),
     ("word_timestamps", "--word-timestamps (timing.py)"),
@@ -144,7 +143,8 @@ def main(argv: Optional[List[str]] = None) -> int:
              None: None}[args.dtype]
 
     t0 = time.time()
-    model = load_model(args.model, dtype=dtype, quantize=args.quantize)
+    model = load_model(args.model, dtype=dtype, quantize=args.quantize,
+                       checkpoint=args.checkpoint)
     if args.verbose:
         print(f"loaded {args.model} ({model.num_params / 1e6:.0f}M params) "
               f"on {model.device} in {time.time() - t0:.1f}s",

@@ -1,35 +1,56 @@
-// Non-causal flash attention forward for Hopper (sm_90a), D = 64.
+// Flash attention forward for Hopper (sm_90a), D = 64: non-causal and causal,
+// any number of keys.
 //
-// Replaces the TPU kernel openai_whisper_coreml_tpu/ops/flash_attention.py
-// :_fa_kernel_single (the encoder's 1500-position self-attention). It
-// computes what that kernel computes, not its block structure:
+// Replaces two TPU kernels of openai_whisper_coreml_tpu/ops/flash_attention.py:
+//   * K1 :_fa_kernel_single (all keys in one <= 1536 block: the encoder's
+//     1500-position self-attention, and with `causal` the decoder's
+//     teacher-forcing self-attention, Tq = Tk <= 448);
+//   * K5 :_fa_kernel (the online-softmax kernel over several KV blocks, used
+//     when Tk > 1536).
+// It computes what those kernels compute, not their block structure:
 //
 //   q' = cast(float(q) * D^-0.5)          (exact for D = 64: a power of two)
 //   S  = q' K^T                           fp32 accumulate
-//   S += -0.7 * FLT_MAX on keys >= kv_len  (additive key-padding bias)
+//   non-causal: S += -0.7 * FLT_MAX on keys >= kv_len  (additive key-padding bias)
+//   causal:     S  = (key < kv_len && key <= row) ? S : -0.7 * FLT_MAX  (select)
 //   P  = exp(S - rowmax(S)),  l = rowsum(P) in fp32
 //   O  = cast(P) V / l                    P rounded to V's type first; l == 0 -> 1
 //
-// The TPU kernel holds all 1500 keys in one VMEM block and runs a plain
-// softmax. K and V for 1500 keys (~384 KB in bf16) do not fit the 227 KB of
-// shared memory a Hopper block may use, so here one CTA owns one
-// (batch, head, 64-query tile) and walks 64-key tiles with the online
-// softmax recurrence (running max, sum and accumulator in fp32). That equals
-// the plain softmax up to rounding.
+// K1 scales q before the product and K5 scales S after it. With D = 64 the
+// scale is 2^-3, so both are exact (q * 2^-3 rounds to q's type without
+// loss, S * 2^-3 in fp32 likewise): one kernel matches both. The mask forms
+// differ (K1's non-causal path adds a bias row, K5 and every causal path
+// select) and give the same P: exp(MASK_VALUE - m) is 0 either way.
+//
+// The TPU kernels hold up to 1536 keys in one VMEM block. K and V for 1500
+// keys (~384 KB in bf16) do not fit the 227 KB of shared memory a Hopper
+// block may use, so here one CTA owns one (batch, head, 64-query tile) and
+// walks 64-key tiles with the online softmax recurrence (running max, sum
+// and accumulator in fp32): that is K5's recurrence, and it equals the
+// plain softmax of K1 up to rounding, so keys beyond 1536 need no second
+// kernel. In causal mode a CTA stops at the tile that holds its last row's
+// diagonal: whole 64-key tiles above the diagonal are skipped, as K5's
+// `should_run` skips KV blocks. Every row's first tile holds key 0, which no
+// row masks, so the running max is finite from the first tile on.
 //
 // What bounds it on the H100: QK^T and PV are 4 * B * H * Tq * Tk * D FLOPs
-// per call; at the encoder's T = 1500, D = 64, H = 20, B = 4 that is 46 GFLOP
-// against 3 x 4 * 1500 * 20 * 64 * 2 B = 46 MB of q/k/v traffic, so at full
-// batch the kernel is tensor-core (and softmax-exp) bound, not memory bound.
-// This first design uses warp-level mma.sync (m16n8k16 bf16 -> fp32) with
-// K/V staged through shared memory by plain loads; it leaves on the table
-// wgmma (the only route to Hopper's full tensor-core rate), TMA with a
-// multi-stage shared-memory ring to overlap loads with math, ldmatrix in
-// place of the transposed V store, exp2 with a folded log2(e), and
-// warp specialisation.
+// per call (about half that when causal); at the encoder's T = 1500, D = 64,
+// H = 20, B = 4 that is 46 GFLOP against 3 x 4 * 1500 * 20 * 64 * 2 B = 46 MB
+// of q/k/v traffic, so at full batch the kernel is tensor-core (and
+// softmax-exp) bound, not memory bound. The decoder's causal T <= 448 does
+// ~13x fewer operations per byte and is near the balance point. This first
+// design uses warp-level mma.sync (m16n8k16 bf16 -> fp32) with K/V staged
+// through shared memory by plain loads; it leaves on the table wgmma (the
+// only route to Hopper's full tensor-core rate), TMA with a multi-stage
+// shared-memory ring to overlap loads with math, ldmatrix in place of the
+// transposed V store, exp2 with a folded log2(e), and warp specialisation.
 //
 // The fp32 instantiation (used for parity checks on the card) is a plain
 // SIMT kernel with FMA, one query row per thread.
+//
+// There is no backward kernel: the TPU package has none either. Its custom
+// VJP recomputes the plain attention and differentiates it, and so does the
+// wrapper's autograd Function (ops/flash_attention.py).
 //
 // Layout: q (B, Tq, H, D), k and v (B, Tk, H, D), read through their batch,
 // time and head strides (in elements; the D stride must be 1). The output
@@ -79,6 +100,7 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
 // Two neighbouring 8-key C tiles of S are exactly one 16-key A fragment of
 // P, so P never leaves registers between the two products.
 // ---------------------------------------------------------------------------
+template <bool kCausal>
 __global__ void __launch_bounds__(128)
 fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -95,6 +117,9 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * kBlockM + warp * 16;
+  // causal: the CTA's last row is blockIdx.x * 64 + 63; tiles starting past
+  // it hold no key that any of its rows keeps
+  const int key_end = kCausal ? min(tk, static_cast<int>(blockIdx.x + 1) * kBlockM) : tk;
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
@@ -125,7 +150,7 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
   float l_run[2] = {0.f, 0.f};               // this thread's partial row sums
 
-  for (int key0 = 0; key0 < tk; key0 += kBlockN) {
+  for (int key0 = 0; key0 < key_end; key0 += kBlockN) {
     __syncthreads();  // previous tile fully consumed
     // 64 keys x 64 dims = 512 chunks of 8 bf16 (16 B); 4 per thread.
 #pragma unroll
@@ -159,14 +184,20 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       }
     }
 
-    // Key-padding bias, then the online-softmax update.
+    // Key-padding bias (causal: the select mask), then the online-softmax
+    // update.
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + j * 8 + 2 * c + (e & 1);
-        if (key >= tk) s[j][e] += kMaskValue;
+        if (kCausal) {
+          const int row = row0 + g + (e >> 1) * 8;
+          if (!(key < tk && key <= row)) s[j][e] = kMaskValue;
+        } else if (key >= tk) {
+          s[j][e] += kMaskValue;
+        }
         tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[j][e]);
       }
     }
@@ -234,6 +265,7 @@ fa_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 // ---------------------------------------------------------------------------
 // fp32: one query row per thread, 64 rows per CTA, keys in chunks of 16.
 // ---------------------------------------------------------------------------
+template <bool kCausal>
 __global__ void __launch_bounds__(kBlockM)
 fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int tq, int tk,
@@ -257,8 +289,9 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc[d] = 0.f;
   }
   float m_run = -INFINITY, l_run = 0.f;
+  const int key_end = kCausal ? min(tk, static_cast<int>(blockIdx.x + 1) * kBlockM) : tk;
 
-  for (int key0 = 0; key0 < tk; key0 += kBlockN) {
+  for (int key0 = 0; key0 < key_end; key0 += kBlockN) {
     __syncthreads();
     for (int e = tid; e < kBlockN * kD; e += kBlockM) {
       const int kr = e / kD, d = e % kD, key = key0 + kr;
@@ -275,7 +308,12 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < kD; ++d) dot = fmaf(qr[d], k_s[j0 + j][d], dot);
-        if (key0 + j0 + j >= tk) dot += kMaskValue;
+        const int key = key0 + j0 + j;
+        if (kCausal) {
+          if (!(key < tk && key <= row)) dot = kMaskValue;
+        } else if (key >= tk) {
+          dot += kMaskValue;
+        }
         s[j] = dot;
         cmax = fmaxf(cmax, dot);
       }
@@ -306,14 +344,19 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
+// cudaErrorInvalidValue without launching when causal is set and tq != tk
+// (the mask aligns queries and keys at position 0).
 int whisper_fa_forward_bf16(const void* q, const void* k, const void* v, void* o, int batch,
                             int tq, int tk, int heads, long long q_sb, long long q_st,
                             long long q_sh, long long k_sb, long long k_st, long long k_sh,
                             long long v_sb, long long v_st, long long v_sh, long long o_sb,
-                            long long o_st, long long o_sh, float sm_scale, void* stream) {
+                            long long o_st, long long o_sh, float sm_scale, int causal,
+                            void* stream) {
+  if (causal && tq != tk) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((tq + kBlockM - 1) / kBlockM, heads, batch);
-  fa_fwd_bf16_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = causal ? fa_fwd_bf16_kernel<true> : fa_fwd_bf16_kernel<false>;
+  kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), tq, tk,
       Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh}, Strides{v_sb, v_st, v_sh},
@@ -325,9 +368,12 @@ int whisper_fa_forward_f32(const void* q, const void* k, const void* v, void* o,
                            int tq, int tk, int heads, long long q_sb, long long q_st,
                            long long q_sh, long long k_sb, long long k_st, long long k_sh,
                            long long v_sb, long long v_st, long long v_sh, long long o_sb,
-                           long long o_st, long long o_sh, float sm_scale, void* stream) {
+                           long long o_st, long long o_sh, float sm_scale, int causal,
+                           void* stream) {
+  if (causal && tq != tk) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((tq + kBlockM - 1) / kBlockM, heads, batch);
-  fa_fwd_f32_kernel<<<grid, kBlockM, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = causal ? fa_fwd_f32_kernel<true> : fa_fwd_f32_kernel<false>;
+  kernel<<<grid, kBlockM, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), tq, tk, Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
       Strides{v_sb, v_st, v_sh}, Strides{o_sb, o_st, o_sh}, sm_scale);

@@ -18,6 +18,11 @@ version only with `self_kernel=True`.
 
 Unlike JAX, `decode_step` writes this step's K/V into the cache in place
 and returns the same cache object.
+
+Teacher forcing (`decoder_forward`) takes `flash=True` from training: its
+causal self-attention then runs the flash kernel's causal mode on the card
+(JAX's `decoder_block_full` never passes flash; the kernel's own docstring
+names teacher forcing as the causal mode's use). Serving never sets it.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
 from ..ops.sqa_int8 import LayerAttend, sqa_int8_layers
@@ -360,17 +366,36 @@ def decode_step(
     return final_logits(decoder, x), cache
 
 
+def decoder_block_full(blk: DecoderBlock, x: torch.Tensor,
+                       cross_k: torch.Tensor, cross_v: torch.Tensor,
+                       flash: bool = False) -> torch.Tensor:
+    """Teacher-forcing block: full causal self-attention (no cache)."""
+    x = x + self_attention(layer_norm(x, blk.attn_ln), blk.attn, causal=True,
+                           flash=flash)
+    p = blk.cross_attn
+    q = split_heads(p.q(layer_norm(x, blk.cross_attn_ln)), p.n_head)
+    x = x + p.out(merge_heads(attention_dmajor(q, cross_k, cross_v)))
+    return x + blk.mlp(layer_norm(x, blk.mlp_ln))
+
+
 def decoder_forward(decoder: TextDecoder, tokens: torch.Tensor,
                     audio_features: Optional[torch.Tensor] = None,
-                    cross_kv: Optional[CrossKV] = None) -> torch.Tensor:
-    """Teacher-forcing forward over a full sequence -> logits (B, T, vocab)."""
+                    cross_kv: Optional[CrossKV] = None, *,
+                    remat: bool = False, flash: bool = False) -> torch.Tensor:
+    """Teacher-forcing forward over a full sequence -> logits (B, T, vocab).
+
+    `remat` recomputes each block in the backward pass (the cross K/V are
+    computed once, outside the blocks, as in JAX); `flash` runs the causal
+    self-attention through `ops.flash_attention`."""
     if cross_kv is None:
         if audio_features is None:
             raise ValueError("need audio_features or cross_kv")
         cross_kv = precompute_cross_kv(decoder, audio_features)
     x = embed_tokens(decoder, tokens, 0)
     for l, blk in enumerate(decoder.blocks):
-        x = x + self_attention(layer_norm(x, blk.attn_ln), blk.attn, causal=True)
-        x = x + _cross_attn(blk, x, cross_kv, l)
-        x = x + blk.mlp(layer_norm(x, blk.mlp_ln))
+        args = (blk, x, cross_kv.k[l], cross_kv.v[l], flash)
+        if remat:
+            x = checkpoint(decoder_block_full, *args, use_reentrant=False)
+        else:
+            x = decoder_block_full(*args)
     return final_logits(decoder, x)

@@ -1,6 +1,8 @@
 """Whisper audio encoder: conv stem + pre-LN transformer stack (port of
 `models/encoder.py`). The 1500-position self-attention of every block runs
-the Hopper flash kernel on the card (`layers.self_attention`)."""
+the Hopper flash kernel on the card (`layers.self_attention`); training
+may ask for the plain attention instead (`flash=False`, JAX's default) and
+for rematerialised blocks (`remat=True`, JAX's `jax.checkpoint`)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
 from .layers import (MLP, Attention, LayerNorm, frozen, gelu, layer_norm,
@@ -38,8 +41,9 @@ class EncoderBlock(nn.Module):
         self.mlp = MLP(p["mlp"])
         self.mlp_ln = LayerNorm(p["mlp_ln"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self_attention(layer_norm(x, self.attn_ln), self.attn)
+    def forward(self, x: torch.Tensor, flash: bool = True) -> torch.Tensor:
+        x = x + self_attention(layer_norm(x, self.attn_ln), self.attn,
+                               flash=flash)
         return x + self.mlp(layer_norm(x, self.mlp_ln))
 
 
@@ -54,9 +58,12 @@ class AudioEncoder(nn.Module):
             for l in range(cfg.n_audio_layer))
         self.ln_post = LayerNorm(p["ln_post"])
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, *, flash: bool = True,
+                remat: bool = False) -> torch.Tensor:
         """mel (B, n_mels, 3000) -> audio features (B, 1500, n_audio_state),
-        in the weights' dtype."""
+        in the weights' dtype. `remat` recomputes each block in the
+        backward pass (activation memory flat in depth; the recompute runs
+        the block's kernels again)."""
         cfg = self.cfg
         x = mel.to(self.conv1.w.dtype)
         x = gelu(self.conv1(x))
@@ -69,5 +76,8 @@ class AudioEncoder(nn.Module):
         x = x + sinusoids(cfg.n_audio_ctx, cfg.n_audio_state,
                           device=x.device).to(x.dtype)
         for block in self.blocks:
-            x = block(x)
+            if remat:
+                x = checkpoint(block, x, flash, use_reentrant=False)
+            else:
+                x = block(x, flash)
         return layer_norm(x, self.ln_post)

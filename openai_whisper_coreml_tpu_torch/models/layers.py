@@ -9,8 +9,15 @@ with the JAX package's numerics:
     so upcasting the attention operands reproduces JAX's
     `preferred_element_type=float32`);
   * attention scales q and k each by D^-0.25 (openai numerics);
-  * the encoder's self-attention goes through `ops.flash_attention`, which
-    launches the Hopper kernel on CUDA tensors.
+  * `self_attention(flash=True)` goes through `ops.flash_attention`, which
+    launches the Hopper kernel on CUDA tensors (the encoder by default;
+    the decoder's causal teacher forcing when training asks for it);
+  * a linear carrying LoRA adapters (`lora_a`, `lora_b`) adds them at run
+    time, on float and int8 bases (lora.py).
+
+Weights are created frozen (Parameters that autograd ignores, so serving
+builds no graph); training asks for the leaves it trains, and
+`train.make_train_step`'s init turns `requires_grad` on for those only.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from ..ops.flash_attention import flash_attention
 
 
 def frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
-    """An inference weight: a Parameter that autograd ignores."""
+    """An inference weight: a Parameter that autograd ignores (training
+    turns `requires_grad` on for the leaves it trains)."""
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
 
@@ -35,16 +43,25 @@ def layer_slice(tree: Mapping[str, Any], l: int) -> dict:
             for k, v in tree.items()}
 
 
+LINEAR_LEAVES = ("w", "w_q", "scale", "b", "lora_a", "lora_b")
+
+
 class Linear(nn.Module):
     """y = x @ w + b with w stored (in, out), or int8 `w_q` with a
-    per-output-channel fp32 `scale` applied after the product."""
+    per-output-channel fp32 `scale` applied after the product; optional
+    LoRA adapters `lora_a` (in, r) and `lora_b` (r, out)."""
 
     def __init__(self, p: Mapping[str, torch.Tensor]):
         super().__init__()
-        for name in ("w", "w_q", "scale", "b"):
+        unknown = set(p) - set(LINEAR_LEAVES)
+        if unknown:
+            raise ValueError(f"unknown linear leaves {sorted(unknown)}")
+        for name in LINEAR_LEAVES:
             self.register_parameter(name, frozen(p.get(name)))
         if (self.w is None) == (self.w_q is None):
             raise ValueError(f"linear needs exactly one of w / w_q, got {sorted(p)}")
+        if (self.lora_a is None) != (self.lora_b is None):
+            raise ValueError(f"LoRA needs both lora_a and lora_b, got {sorted(p)}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self)
@@ -98,6 +115,10 @@ def linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
         y = (x @ p.w_q.to(x.dtype)).float() * p.scale
     else:
         y = (x @ p.w.to(x.dtype)).float()
+    if p.lora_a is not None:
+        # the rank-r bottleneck, added in fp32 before the bias (JAX `linear`)
+        xa = (x @ p.lora_a.to(x.dtype)).float()
+        y = y + (xa.to(x.dtype) @ p.lora_b.to(x.dtype)).float()
     if p.b is not None:
         y = y + p.b.float()
     return y.to(x.dtype)
@@ -134,19 +155,23 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def self_attention(x: torch.Tensor, p: Attention,
-                   causal: bool = False) -> torch.Tensor:
-    """Full-sequence self-attention. Non-causal (the encoder) runs the flash
-    kernel; causal (decoder teacher forcing) the masked plain form."""
+def self_attention(x: torch.Tensor, p: Attention, *, causal: bool = False,
+                   flash: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (encoder, or causal decoder teacher
+    forcing): `flash` takes `ops.flash_attention` (the kernel on the card),
+    otherwise the plain `attention_core`, with a lower-triangular mask when
+    causal (JAX `layers.self_attention`)."""
     q = split_heads(p.q(x), p.n_head)
     k = split_heads(p.k(x), p.n_head)
     v = split_heads(p.v(x), p.n_head)
-    if causal:
-        t = x.shape[1]
-        mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-        out = attention_core(q, k, v, mask=mask)
+    if flash:
+        out = flash_attention(q, k, v, causal=causal)
     else:
-        out = flash_attention(q, k, v)
+        mask = None
+        if causal:
+            t = x.shape[1]
+            mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+        out = attention_core(q, k, v, mask=mask)
     return p.out(merge_heads(out))
 
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Mapping, Optional
 
 import torch
@@ -78,13 +79,9 @@ class WhisperModel(nn.Module):
         return count_params(self)
 
 
-def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
-                seed: int = 0, quantize: Optional[str] = None,
-                device: torch.device | str | None = None) -> WhisperModel:
-    """A WhisperModel of `cfg` with random weights made from `seed` on
-    `device`: cuda by default, the CPU only when the caller passes
-    device="cpu". dtype defaults to bf16 on cuda and fp32 on cpu;
-    quantize="int8" gives weights-only int8 linears."""
+def _device_and_dtype(device, dtype):
+    """cuda by default (raising without a card), the CPU only on request;
+    bf16 on cuda and fp32 on cpu unless dtype is given."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -94,6 +91,17 @@ def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    return device, dtype
+
+
+def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
+                seed: int = 0, quantize: Optional[str] = None,
+                device: torch.device | str | None = None) -> WhisperModel:
+    """A WhisperModel of `cfg` with random weights made from `seed` on
+    `device`: cuda by default, the CPU only when the caller passes
+    device="cpu". dtype defaults to bf16 on cuda and fp32 on cpu;
+    quantize="int8" gives weights-only int8 linears."""
+    device, dtype = _device_and_dtype(device, dtype)
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantization {quantize!r}")
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -106,9 +114,46 @@ def build_model(cfg: WhisperConfig, *, dtype: Optional[torch.dtype] = None,
 
 
 def load_model(name: str, *, dtype: Optional[torch.dtype] = None, seed: int = 0,
-               quantize: Optional[str] = None,
+               quantize: Optional[str] = None, checkpoint: Optional[str] = None,
                device: torch.device | str | None = None) -> WhisperModel:
-    """Build a named Whisper size with random weights (see build_model).
-    Checkpoint files are not supported yet."""
-    return build_model(get_config(name), dtype=dtype, seed=seed,
-                       quantize=quantize, device=device)
+    """A named Whisper size: random weights from `seed` (see build_model),
+    or the weights of a `.safetensors` checkpoint written by either
+    package's `save_params` (`tools/convert.py`, fine-tuning).
+
+    An int8 checkpoint (`quantized: int8` in its metadata) loads as it is:
+    quantize="int8" is then satisfied, and another quantize raises. The
+    JAX package's orbax training-state directories cannot be read here
+    (orbax does not run on the card): a directory raises. Alignment heads
+    in the metadata are not read until word timestamps are ported."""
+    if checkpoint is None:
+        return build_model(get_config(name), dtype=dtype, seed=seed,
+                           quantize=quantize, device=device)
+    from ..utils.checkpoint import load_params, read_metadata
+
+    if os.path.isdir(checkpoint) or not checkpoint.endswith(".safetensors"):
+        raise ValueError(
+            f"{checkpoint!r}: the port loads .safetensors checkpoints only; "
+            "JAX orbax train-state directories do not load into it (convert "
+            "with the JAX package's utils.checkpoint.save_params)")
+    cfg = get_config(name)
+    device, dtype = _device_and_dtype(device, dtype)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantization {quantize!r}")
+    params = load_params(checkpoint, cfg=cfg, dtype=dtype)
+    prequantized = read_metadata(checkpoint).get("quantized")
+    if prequantized:
+        if quantize not in (None, prequantized):
+            raise ValueError(f"checkpoint is pre-quantized ({prequantized}); "
+                             f"quantize={quantize!r} cannot apply")
+        quantize = None
+    params = _to_device(params, device)
+    if quantize == "int8":
+        from ..quantize import quantize_params
+
+        params = quantize_params(params)
+    return WhisperModel(cfg, params)
+
+
+def _to_device(tree: Mapping[str, Any], device: torch.device) -> dict:
+    return {k: (_to_device(v, device) if isinstance(v, Mapping) else v.to(device))
+            for k, v in tree.items()}

@@ -1,14 +1,24 @@
-"""Encoder flash attention: the Hopper kernel, its wrapper and its plain version.
+"""Flash attention: the Hopper kernel, its wrapper, its plain version and
+its gradient.
 
-`flash_attention(q, k, v)` is the port of the JAX package's
-`ops/flash_attention.py:_fa_kernel_single` (non-causal attention whose keys
-all fit one block; Whisper's encoder at T=1500). On a CUDA tensor it
-launches the hand-written kernel in `csrc/flash_attention.cu` or raises; on
-a CPU tensor it runs `flash_attention_reference`, the same math in PyTorch.
+`flash_attention(q, k, v, causal=...)` ports two TPU kernels of the JAX
+package's `ops/flash_attention.py`: `_fa_kernel_single` (K1: all keys in
+one <= 1536 block; non-causal for Whisper's encoder at T=1500, causal for
+the decoder's teacher forcing) and `_fa_kernel` (K5: the online-softmax
+kernel over several KV blocks, which JAX runs when Tk > 1536). One CUDA
+kernel, `csrc/flash_attention.cu`, computes both: it walks 64-key tiles
+with the online recurrence whatever Tk is, and in causal mode skips the
+tiles above the diagonal.
+
+On a CUDA tensor the forward launches that kernel or raises; on a CPU
+tensor it runs `flash_attention_reference`, the same math in PyTorch.
 There is no fallback from the card to the plain version.
 
-The kernel's causal mode and the online multi-block kernel (`_fa_kernel`)
-with its recompute backward are not ported yet (see ROADMAP.md).
+The gradient is the JAX package's `_flash_diff_bwd`: the backward
+recomputes the plain `layers.attention_core` (with a lower-triangular mask
+when causal) and takes its gradient. The JAX package has no backward
+kernel, and neither has the port: the (Tq, Tk) scores exist only inside
+the backward, one layer at a time under rematerialised blocks.
 """
 
 from __future__ import annotations
@@ -21,30 +31,51 @@ import torch
 from ._build import load_library
 
 HEAD_DIM = 64  # the kernel is compiled for D = 64 (every Whisper size)
+BLOCK_K = 1536  # JAX's largest KV block: more keys run its online kernel (K5)
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# Kernel launches made by `flash_attention` (a plain count; callers reset it).
+# Kernel launches made by `flash_attention`, by the TPU kernel each one
+# stands in for (plain counts; callers reset them): K1 non-causal, K1's
+# causal mode, and K5 (Tk > 1536, causal or not).
 launches = 0
+launches_causal = 0
+launches_online = 0
 
 _ENTRY = {torch.bfloat16: "whisper_fa_forward_bf16",
           torch.float32: "whisper_fa_forward_f32"}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor) -> torch.Tensor:
+                              v: torch.Tensor, *,
+                              causal: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel's math, (B,Tq,H,D) -> (B,Tq,H,D).
 
     q is upcast to fp32, scaled by D^-0.5 and rounded back to its type;
-    S = qK^T in fp32; a plain fp32 softmax; P is rounded to V's type before
-    P V (fp32 accumulation); then division by l with an l == 0 guard.
+    S = qK^T in fp32; causal sets S to MASK_VALUE where key > query (a
+    select, as the TPU kernels mask); a plain fp32 softmax; P is rounded to
+    V's type before P V (fp32 accumulation); then division by l with an
+    l == 0 guard.
     """
     d = q.shape[-1]
     qs = (q.float() * d ** -0.5).to(k.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    if causal:
+        _check_causal(q, k)
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, MASK_VALUE)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
     o = o * torch.where(l == 0, 1.0, 1.0 / l)
     return o.transpose(1, 2).to(q.dtype)
+
+
+def _check_causal(q: torch.Tensor, k: torch.Tensor) -> None:
+    if q.shape[1] != k.shape[1]:
+        # the mask aligns queries and keys at position 0; a suffix query
+        # (incremental decode) would mask almost everything
+        raise ValueError(f"causal flash attention requires tq == tk, got "
+                         f"{q.shape[1]} vs {k.shape[1]}")
 
 
 @functools.cache
@@ -56,7 +87,7 @@ def load_kernel() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -82,21 +113,10 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                 f"(strides {x.stride()}, data_ptr {x.data_ptr():#x})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention (B,Tq,H,D) x (B,Tk,H,D) -> (B,Tq,H,D), q's dtype.
-
-    CUDA tensors launch the Hopper kernel (bf16 or fp32, D = 64) on the
-    current stream or raise; CPU tensors take `flash_attention_reference`.
-    """
-    global launches
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q, k, v on different devices: {q.device}, "
-                         f"{k.device}, {v.device}")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """One launch of the kernel on the current stream; counts it."""
+    global launches, launches_causal, launches_online
     _check_cuda(q, k, v)
     fn = getattr(load_kernel(), _ENTRY[q.dtype])
     b, tq, h, d = q.shape
@@ -105,9 +125,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, tq, k.shape[1], h, *strides, d ** -0.5, stream)
+                 b, tq, k.shape[1], h, *strides, d ** -0.5, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    if k.shape[1] > BLOCK_K:
+        launches_online += 1
+    elif causal:
+        launches_causal += 1
+    else:
+        launches += 1
     return out
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> torch.Tensor:
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
+    if causal:
+        _check_causal(q, k)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return _launch(q, k, v, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel (or plain) forward; backward by recompute through the plain
+    `attention_core`, as JAX's `_flash_diff_bwd` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..models.layers import attention_core
+
+        q, k, v = ctx.saved_tensors
+        mask = None
+        if ctx.causal:
+            # (Tq, Tk) shaped: the backward does not bake in Tq == Tk
+            mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                              device=q.device).tril()
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = attention_core(*qkv, mask=mask)
+            grads = torch.autograd.grad(out, qkv, grad)
+        return (*grads, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention (B,Tq,H,D) x (B,Tk,H,D) -> (B,Tq,H,D) in q's dtype,
+    differentiable in q, k and v on both devices.
+
+    CUDA tensors launch the Hopper kernel (bf16 or fp32, D = 64, any Tk >= 1;
+    causal needs Tq == Tk) on the current stream or raise; CPU tensors take
+    `flash_attention_reference`.
+    """
+    return _FlashAttention.apply(q, k, v, causal)

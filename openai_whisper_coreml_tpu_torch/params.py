@@ -1,12 +1,22 @@
-"""Parameter trees: random initialisation and loading the JAX pytree.
+"""Parameter trees: random initialisation, the JAX pytree both ways, and
+JAX paths for the model's parameters.
 
 The port keeps the JAX package's parameter layout as its interchange format
 (`openai_whisper_coreml_tpu/params.py`): a nested dict whose per-layer
 weights are stacked on axis 0, linear weights stored (in, out), conv
 weights (kernel, C_in, C_out). `models.whisper.WhisperModel` turns such a
-tree into `nn.Module`s (conv weights become PyTorch's (C_out, C_in, kernel)
-there), so a tree made here, quantised by `quantize.quantize_params`, or
-converted from the JAX package, all load the same way.
+tree into `nn.Module`s (one per layer; conv weights become PyTorch's
+(C_out, C_in, kernel) there), so a tree made here, quantised by
+`quantize.quantize_params`, given LoRA adapters by `lora.add_lora`, loaded
+from a checkpoint or converted from the JAX package, all load the same
+way. `params_tree` / `to_jax_params` go back: they restack the layers and
+give the conv weights back in JAX's order, so checkpoints, `merge_lora`
+and the tests read what the optimizer wrote into the modules.
+
+Every module parameter has a JAX path (`jax_path`): the parameter's name
+with the layer index dropped and "/" for ".", e.g.
+`decoder.blocks.3.attn.q.w` -> `decoder/blocks/attn/q/w`. Training matches
+its `trainable` pattern against these paths, as JAX does.
 """
 
 from __future__ import annotations
@@ -103,11 +113,75 @@ def tree_from_numpy(tree: Mapping[str, Any]) -> Params:
 
 def from_jax_params(tree: Mapping[str, Any], cfg: WhisperConfig):
     """Load a JAX parameter pytree (as numpy, e.g. via `jax.device_get`),
-    float or int8-quantised, into the port's modules: an fp32 WhisperModel
-    on the CPU (`.to(device, dtype)` moves it; int8 weights keep their type)."""
+    float or int8-quantised, with or without LoRA adapters, into the port's
+    modules: an fp32 WhisperModel on the CPU (`.to(device, dtype)` moves
+    it; int8 weights keep their type)."""
     from .models.whisper import WhisperModel
 
     return WhisperModel(cfg, tree_from_numpy(tree))
+
+
+_CONV_PATHS = ("encoder/conv1/w", "encoder/conv2/w")  # (C_out, C_in, k) in torch
+
+
+def jax_path(name: str) -> str:
+    """A module parameter's name -> its path in the JAX tree."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[1] == "blocks":
+        del parts[2]  # the layer index: JAX stacks layers on axis 0
+    return "/".join(parts)
+
+
+def params_tree(model: torch.nn.Module) -> Params:
+    """The model's parameters as a JAX-layout tree of tensors on the
+    model's device and in its dtypes: layers restacked (copies), conv
+    weights back to (kernel, C_in, C_out); other leaves are the parameters'
+    detached tensors."""
+    from .utils.checkpoint import unflatten_params
+
+    groups: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        groups.setdefault(jax_path(name), []).append(p.detach())
+    flat = {}
+    for path, ts in groups.items():
+        t = torch.stack(ts) if "/blocks/" in path else ts[0]
+        if path in _CONV_PATHS:
+            t = t.permute(2, 1, 0).contiguous()
+        flat[path] = t
+    return unflatten_params(flat)
+
+
+def to_jax_params(model: torch.nn.Module) -> Params:
+    """The model's parameters as the JAX package's nested numpy tree (float
+    leaves as fp32, bf16 included; int8 stays int8)."""
+    from .utils.checkpoint import _to_numpy, flatten_params, unflatten_params
+
+    flat = flatten_params(params_tree(model))
+    return unflatten_params({k: _to_numpy(v) for k, v in flat.items()})
+
+
+@torch.no_grad()
+def assign_params(model: torch.nn.Module, tree: Mapping[str, Any]) -> None:
+    """Copy a JAX-layout tree (tensors, or numpy) into the model's
+    parameters in place; the tree must hold exactly the model's leaves."""
+    from .utils.checkpoint import flatten_params
+
+    flat = flatten_params(tree)
+    named = dict(model.named_parameters())
+    missing = {jax_path(n) for n in named} ^ set(flat)
+    if missing:
+        raise ValueError(f"tree and model leaves differ: {sorted(missing)}")
+    for name, p in named.items():
+        path = jax_path(name)
+        leaf = torch.as_tensor(flat[path])
+        if path in _CONV_PATHS:
+            leaf = leaf.permute(2, 1, 0)
+        if "/blocks/" in path:
+            leaf = leaf[int(name.split(".")[2])]
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(leaf.shape)} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(leaf)
 
 
 def count_params(module: torch.nn.Module) -> int:

@@ -134,7 +134,6 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--checkpoint", "m.safetensors"], "checkpoint"),
     (["--stream"], "stream.py"),
     (["--draft-model", "tiny"], "speculative.py"),
     (["--word-timestamps"], "timing.py"),

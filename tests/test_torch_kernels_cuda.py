@@ -252,3 +252,97 @@ def test_step_entries_match_the_wrappers_on_card(kernel):
                                        vf)[:, None], rtol=0, atol=0)
     with pytest.raises(IndexError):
         attend(q, n_layers)
+
+
+def _counts():
+    return fa.launches, fa.launches_causal, fa.launches_online
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 448, 448, 20), True), ((2, 37, 37, 2), True), ((1, 130, 130, 2), True),
+    ((2, 2048, 2048, 4), True), ((2, 2048, 2048, 4), False),
+    ((1, 100, 1600, 2), False)])
+def test_causal_and_multi_block_kernel_matches_plain_version_on_card(
+        shape, causal, dtype):
+    """K1's causal mode and K5 (Tk > 1536): one kernel, each launch counted
+    once under the TPU kernel it stands in for."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, tq, tk, h = shape
+    q = torch.randn(b, tq, h, 64, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, tk, h, 64, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, tk, h, 64, generator=g, device="cuda").to(dtype)
+    before = _counts()
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    which = 2 if tk > fa.BLOCK_K else (1 if causal else 0)
+    assert [a - c for a, c in zip(_counts(), before)] == [int(i == which)
+                                                         for i in range(3)]
+    _close(out, fa.flash_attention_reference(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.cuda
+def test_causal_kernel_rejects_unaligned_queries():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q = torch.zeros(1, 8, 2, 64, device="cuda")
+    kv = torch.zeros(1, 9, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="tq == tk"):
+        fa.flash_attention(q, kv, kv, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradients_match_plain_attention_on_card(causal):
+    """The Function's q/k/v gradients (kernel forward, recompute backward)
+    against autograd through the plain attention_core, fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from openai_whisper_coreml_tpu_torch.models.layers import attention_core
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = [torch.randn(2, 96, 4, 64, generator=g, device="cuda").requires_grad_()
+           for _ in range(3)]
+    gout = torch.randn(2, 96, 4, 64, generator=g, device="cuda")
+    out = fa.flash_attention(*qkv, causal=causal)
+    got = torch.autograd.grad(out, qkv, gout)
+    mask = torch.ones(96, 96, dtype=torch.bool, device="cuda").tril() if causal else None
+    ref_out = attention_core(*qkv, mask=mask)
+    want = torch.autograd.grad(ref_out, qkv, gout)
+    assert (out - ref_out).abs().max().item() <= 2e-5
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_encoder_projection_gets_its_gradient_through_the_kernel():
+    """A loss through the encoder reaches attn.q.w through the kernel's
+    output: nonzero, and equal to the plain path's gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    model = build_model(cfg, dtype=torch.float32, seed=0, device="cuda")
+    w = model.encoder.blocks[0].attn.q.w
+    w.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    mel = torch.randn(1, cfg.n_mels, 3000, device="cuda", generator=g)
+    # a fixed random projection: a loss whose gradient is not the near-zero
+    # one of a layer-normed output's mean square
+    proj = torch.randn(1, cfg.n_audio_ctx, cfg.n_audio_state, device="cuda",
+                       generator=g)
+    grads = {}
+    for flash in (True, False):
+        before = fa.launches
+        feats = model.encoder(mel, flash=flash)
+        (grads[flash],) = torch.autograd.grad((feats * proj).sum(), [w])
+        assert fa.launches - before == (cfg.n_audio_layer if flash else 0)
+    assert grads[True].abs().max().item() > 0
+    scale = grads[False].abs().max().item()
+    assert (grads[True] - grads[False]).abs().max().item() <= 1e-4 * scale
