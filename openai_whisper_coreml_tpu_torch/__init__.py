@@ -5,9 +5,11 @@ kernel) -> int8 or bf16 cross-KV -> greedy, sampled or beam KV-cached
 decoding over a bf16 or int8 self-attention cache (Hopper single-query
 attention kernels on every single-token step) with the timestamp rules,
 language ID, long-form `transcribe`, batched serving (`transcribe_batch`,
-static and continuous schedulers) and the CLI (`python -m
-openai_whisper_coreml_tpu_torch`). Imports torch, never JAX; the JAX
-package is the reference it is tested against.
+static and continuous schedulers, beam under both), streaming
+(`StreamingTranscriber`, `MultiStreamTranscriber`), the HTTP server
+(`python -m openai_whisper_coreml_tpu_torch.serve_http`) and the CLI
+(`python -m openai_whisper_coreml_tpu_torch`). Imports torch, never JAX;
+the JAX package is the reference it is tested against.
 """
 
 __version__ = "0.1.0"
@@ -18,6 +20,8 @@ from .decoding import (DecodingOptions, DecodingResult, decode,  # noqa: F401
                        detect_language)
 from .models.whisper import WhisperModel, build_model, load_model  # noqa: F401
 from .serve import ServeOptions, transcribe_batch  # noqa: F401
+from .stream import (MultiStreamTranscriber, StreamEvent,  # noqa: F401
+                     StreamingTranscriber)
 from .tokenizer import get_tokenizer  # noqa: F401
 from .transcribe import transcribe  # noqa: F401
 

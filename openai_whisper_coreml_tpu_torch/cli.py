@@ -2,10 +2,13 @@
 (port of `cli.py`).
 
 Files of any length in, transcripts out (txt/srt/vtt/tsv/json), or language
-ID with `--task lang-id`. The flags are the JAX package's; `--checkpoint`
-reads a `.safetensors` file. Those whose module is not ported yet raise
-with a message naming ROADMAP.md: `--stream`, `--draft-model`,
-`--word-timestamps`, `--profile-dir` and `--tensor-parallel` above 1.
+ID with `--task lang-id`, or simulated real-time streaming with `--stream`
+(1 s chunks through `stream.StreamingTranscriber`, confirmed text printed
+as it comes; `--kv-dtype` and `--cache-dtype` apply to its decodes). The
+flags are the JAX package's; `--checkpoint` reads a `.safetensors` file.
+Those whose module is not ported yet raise with a message naming
+ROADMAP.md: `--draft-model`, `--word-timestamps`, `--profile-dir` and
+`--tensor-parallel` above 1.
 Left out are the JAX CLI's `--batch`, which it never reads, and
 `--draft-checkpoint` and `--spec-k`, which only `--draft-model` reads. The model is built on the
 card; without one, loading it raises.
@@ -59,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--word-timestamps", action="store_true",
                    help="per-word timings (not ported yet)")
     p.add_argument("--stream", action="store_true",
-                   help="simulated real-time streaming (not ported yet)")
+                   help="simulate real-time streaming over the file, "
+                        "printing confirmed text incrementally")
     p.add_argument("--profile-dir", default=None,
                    help="device trace directory (not ported yet)")
     p.add_argument("--no-condition-on-previous-text", action="store_true")
@@ -110,7 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _UNPORTED = (
-    ("stream", "--stream (stream.py)"),
     ("draft_model", "--draft-model (speculative.py)"),
     ("word_timestamps", "--word-timestamps (timing.py)"),
     ("profile_dir", "--profile-dir (device traces)"),
@@ -168,6 +171,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             status = 1
             continue
         duration = len(audio) / 16_000
+
+        if args.stream:
+            from .stream import StreamingTranscriber
+
+            st = StreamingTranscriber(model, language=args.language or "en",
+                                      beam_size=args.beam_size)
+            chunk = 16_000  # 1 s
+            for off in range(0, len(audio), chunk):
+                for ev in st.feed(audio[off:off + chunk]):
+                    print(ev.text, end="", flush=True)
+            for ev in st.finish():
+                print(ev.text, flush=True)
+            elapsed = time.time() - t0
+            print(f"{path}: streamed {duration:.1f}s in {elapsed:.1f}s",
+                  file=sys.stderr)
+            continue
 
         if args.task == "lang-id":
             from .audio import pad_or_trim

@@ -1,12 +1,15 @@
-// Single-query decode attention for Hopper (sm_90a), D = 64: one kernel,
-// two K/V formats.
+// Single-query decode attention for Hopper (sm_90a), D = 64: one kernel
+// over two K/V formats, and beside it the int8 x int8 cross-attention
+// kernel (K2, at the end of this file), which shares the launch arguments,
+// the bounds and the block reductions.
 //
-// Replaces two TPU kernels:
+// Replaces three TPU kernels:
 //   K3 openai_whisper_coreml_tpu/ops/sqa_self.py:_sqa_self_kernel, over the
 //      bf16 self-attention cache (B, H, D, C);
 //   K6 openai_whisper_coreml_tpu/ops/sqa_int8.py:_sqa_kernel, over int8 K/V
 //      (B, H, D, S) with fp32 (B, H, 1, S) column scales: int8 cross-KV
-//      (S = 1500 audio positions) and the int8 self-attention cache.
+//      (S = 1500 audio positions) and the int8 self-attention cache;
+//   K2 openai_whisper_coreml_tpu/ops/sqa_v3.py:_sqa3_kernel (see below).
 // One decode step's query per (row, head) attends the slice in its stored
 // d-major layout, columns valid_from <= c <= pos with per-row bounds:
 //
@@ -233,6 +236,138 @@ int launch(const SqaArgs& a, const void* q, KV k, KV v, void* out) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K2: single-query cross-attention with an int8 query (ops/sqa_v3.py).
+//
+// The TPU kernel's arithmetic, in its order, with the query's row
+// quantisation and the scale fold that JAX runs in XLA outside the kernel
+// fused in (one warp reduction over D = 64 instead of ~6 launches):
+//
+//   qs    = max(max_d |q| / 127, 1e-12)              per (row, head)
+//   q8    = clip(rint(q / qs), +-127)                round half to even
+//   s[c]  = (float(int32 q8 . k8[:, c]) * (k_scale[c] * qs)) * D^-0.5
+//   p     = exp(s - max s), denom = sum p, pv = p * v_scale[c]
+//   av_int8:  wmax = max(max pv, 1e-20); w8 = clip(rint(pv * (127 / wmax)))
+//             out = (float(int32 w8 . v8[d, :]) * (wmax / 127)) / denom
+//   else:     out = (sum bf16(pv) * v8[d, :], fp32) / denom
+//
+// Columns outside [valid_from, pos] (the 1500 -> 1536 lane padding: pos =
+// s_len - 1, valid_from = 0) take the TPU kernel's -0.7 FLT_MAX logit, whose
+// weight is an exact 0; they are never read. The int32 sums are exact: the
+// QK dot is at most 64 * 127^2, the A.V sum 1500 * 127^2 < 2^31.
+//
+// What bounds it on the H100: at (4, 20, 64, 1500 of 1536) it must read
+// 15.36 MB of int8 K/V and 0.96 MB of scales (>= 4.9 us at 3.35 TB/s); its
+// ~3.1e7 int8 operations are negligible. Byte-bound like K6, whose design it
+// follows: one CTA per (row, head), threads over columns for the logits
+// (coalesced along the d-major slice), fp32 logits and weights in shared
+// memory, block reductions, warps over d for A.V. dp4a or mma int8, split-S,
+// vector loads and cp.async are later work.
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename QT, bool kAvInt8>
+__global__ void __launch_bounds__(kThreads)
+sqa_v3_kernel(const QT* __restrict__ q, Int8KV k, Int8KV v, QT* __restrict__ out, Bound pos,
+              Bound valid_from, int cols, long long q_sb, long long q_sh, long long o_sb,
+              long long o_sh, float sm_scale) {
+  extern __shared__ float w_s[];  // [cols]: logits, then weights (w8 as floats)
+  __shared__ int q8_s[kD];
+  __shared__ float qs_s;
+  __shared__ float red[kWarps];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // the wrapper passes 0 <= valid_from <= pos < cols
+  const int lo = max(valid_from.at(b), 0);
+  const int hi = min(pos.at(b), cols - 1);
+
+  if (warp == 0) {  // quantize_q_rows; IEEE division (no fast math)
+    const QT* qb = q + b * q_sb + h * q_sh;
+    const float x0 = to_float(qb[lane]);
+    const float x1 = to_float(qb[lane + 32]);
+    const float qs = fmaxf(warp_max(fmaxf(fabsf(x0), fabsf(x1))) / 127.f, 1e-12f);
+    q8_s[lane] = static_cast<int>(fminf(fmaxf(rintf(x0 / qs), -127.f), 127.f));
+    q8_s[lane + 32] = static_cast<int>(fminf(fmaxf(rintf(x1 / qs), -127.f), 127.f));
+    if (lane == 0) qs_s = qs;
+  }
+  __syncthreads();
+  const float qs = qs_s;
+
+  const int8_t* kb = k.row(b, h, 0);
+  float m = -INFINITY;
+  for (int c = lo + tid; c <= hi; c += kThreads) {
+    int dot = 0;
+#pragma unroll 16
+    for (int d = 0; d < kD; ++d) dot += q8_s[d] * static_cast<int>(kb[d * k.sd + c]);
+    const float s = (static_cast<float>(dot) * (k.scale(b, h, c) * qs)) * sm_scale;
+    w_s[c] = s;
+    m = fmaxf(m, s);
+  }
+  m = block_max(m, red);
+
+  float l = 0.f;
+  float wmax = 0.f;  // pv >= 0
+  for (int c = lo + tid; c <= hi; c += kThreads) {
+    const float p = expf(w_s[c] - m);
+    l += p;
+    const float pv = p * v.scale(b, h, c);
+    w_s[c] = pv;
+    wmax = fmaxf(wmax, pv);
+  }
+  l = block_sum(l, red);
+  if constexpr (kAvInt8) {
+    wmax = fmaxf(block_max(wmax, red), 1e-20f);
+    const float r = 127.f / wmax;
+    for (int c = lo + tid; c <= hi; c += kThreads) {
+      w_s[c] = fminf(fmaxf(rintf(w_s[c] * r), -127.f), 127.f);
+    }
+  }
+  __syncthreads();
+
+  QT* ob = out + b * o_sb + h * o_sh;
+  for (int d = warp; d < kD; d += kWarps) {
+    const int8_t* vrow = v.row(b, h, d);
+    if constexpr (kAvInt8) {
+      int acc = 0;
+      for (int c = lo + lane; c <= hi; c += 32) {
+        acc += static_cast<int>(w_s[c]) * static_cast<int>(vrow[c]);
+      }
+      acc = warp_sum_int(acc);
+      if (lane == 0) store(static_cast<float>(acc) * (wmax / 127.f) / l, ob + d);
+    } else {
+      float acc = 0.f;
+      for (int c = lo + lane; c <= hi; c += 32) {
+        acc = fmaf(__bfloat162float(__float2bfloat16(w_s[c])), static_cast<float>(vrow[c]),
+                   acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) store(acc / l, ob + d);
+    }
+  }
+}
+
+template <typename QT, bool kAvInt8>
+int launch_v3(const SqaArgs& a, const void* q, Int8KV k, Int8KV v, void* out) {
+  if (a.batch < 1 || a.heads < 1 || a.cols < 1 || a.cols > kMaxCols || a.batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sqa_v3_kernel<QT, kAvInt8><<<dim3(a.heads, a.batch), kThreads, a.cols * sizeof(float),
+                               static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const QT*>(q), k, v, static_cast<QT*>(out),
+      Bound{static_cast<const int*>(a.pos), a.pos_stride, a.pos_value},
+      Bound{static_cast<const int*>(a.valid_from), a.vf_stride, a.vf_value}, a.cols, a.q_sb,
+      a.q_sh, a.o_sb, a.o_sh, a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -264,7 +399,25 @@ WHISPER_SQA_INT8_ENTRY(whisper_sqa_int8_f32, float)
 WHISPER_SQA_SELF_ENTRY(whisper_sqa_self_bf16, __nv_bfloat16)
 WHISPER_SQA_SELF_ENTRY(whisper_sqa_self_f32, float)
 
+// K2. q and out (B, H, 64) in one type (bf16 or fp32); k8, v8 (B, H, 64, S)
+// int8 and k_scale, v_scale (B, H, 1, S) fp32, unit column strides; the
+// bounds carry s_len; av_int8 != 0 takes the int8 A.V product.
+#define WHISPER_SQA_V3_ENTRY(NAME, T)                                                           \
+  int NAME(const SqaArgs* a, int av_int8, const void* q, const void* k8, const void* k_scale,   \
+           const void* v8, const void* v_scale, void* out) {                                    \
+    const Int8KV k{static_cast<const int8_t*>(k8), static_cast<const float*>(k_scale), a->k_sb, \
+                   a->k_sh, a->k_sd, a->ks_sb, a->ks_sh};                                       \
+    const Int8KV v{static_cast<const int8_t*>(v8), static_cast<const float*>(v_scale), a->v_sb, \
+                   a->v_sh, a->v_sd, a->vs_sb, a->vs_sh};                                       \
+    return av_int8 ? launch_v3<T, true>(*a, q, k, v, out)                                       \
+                   : launch_v3<T, false>(*a, q, k, v, out);                                     \
+  }
+
+WHISPER_SQA_V3_ENTRY(whisper_sqa_v3_bf16, __nv_bfloat16)
+WHISPER_SQA_V3_ENTRY(whisper_sqa_v3_f32, float)
+
 #undef WHISPER_SQA_INT8_ENTRY
 #undef WHISPER_SQA_SELF_ENTRY
+#undef WHISPER_SQA_V3_ENTRY
 
 }  // extern "C"

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +28,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # name -> {"seconds": build wall time (0.0 when reused), "log": nvcc's stderr}
 BUILD_INFO: dict[str, dict] = {}
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(module: str, counter: str = "launches") -> None:
+    """Add one to the launch count `counter` of the wrapper module named
+    `module`. One lock guards every count: the HTTP server launches kernels
+    from its batch worker and its handler threads at once, and a bare
+    `count += 1` can lose an increment between threads."""
+    mod = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def _nvcc() -> str:
@@ -51,7 +65,8 @@ def load_library(name: str, *sources: str) -> ctypes.CDLL:
     info = {"seconds": 0.0, "log": ""}
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        # per thread: two threads of one process may build the same library
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)],

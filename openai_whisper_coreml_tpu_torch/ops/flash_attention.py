@@ -28,15 +28,15 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import count_launch, load_library
 
 HEAD_DIM = 64  # the kernel is compiled for D = 64 (every Whisper size)
 BLOCK_K = 1536  # JAX's largest KV block: more keys run its online kernel (K5)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 # Kernel launches made by `flash_attention`, by the TPU kernel each one
-# stands in for (plain counts; callers reset them): K1 non-causal, K1's
-# causal mode, and K5 (Tk > 1536, causal or not).
+# stands in for (ints that callers reset; `count_launch` adds to them under a
+# lock): K1 non-causal, K1's causal mode, and K5 (Tk > 1536, causal or not).
 launches = 0
 launches_causal = 0
 launches_online = 0
@@ -116,7 +116,6 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     """One launch of the kernel on the current stream; counts it."""
-    global launches, launches_causal, launches_online
     _check_cuda(q, k, v)
     fn = getattr(load_kernel(), _ENTRY[q.dtype])
     b, tq, h, d = q.shape
@@ -130,11 +129,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
     if k.shape[1] > BLOCK_K:
-        launches_online += 1
+        count_launch(__name__, "launches_online")
     elif causal:
-        launches_causal += 1
+        count_launch(__name__, "launches_causal")
     else:
-        launches += 1
+        count_launch(__name__)
     return out
 
 

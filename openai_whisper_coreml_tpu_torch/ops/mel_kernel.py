@@ -21,7 +21,7 @@ import torch
 
 from ..audio import dft_matrices, hann_window, mel_filters
 from ..config import HOP_LENGTH, N_FFT
-from ._build import load_library
+from ._build import count_launch, load_library
 
 N_BINS = N_FFT // 2 + 1  # 201
 # Row width of the cos / -sin tables: the kernel's bin tiling (kBinsPad in
@@ -29,7 +29,8 @@ N_BINS = N_FFT // 2 + 1  # 201
 # built, and the kernel refuses to launch on any other.
 BINS_PAD = 224
 
-# Kernel launches made by `log_mel_kernel` (a plain count; callers reset it).
+# Kernel launches made by `log_mel_kernel` (an int that callers reset;
+# `count_launch` adds to it under a lock).
 launches = 0
 
 
@@ -89,7 +90,6 @@ def log_mel_kernel(audio_padded: torch.Tensor, n_mels: int) -> torch.Tensor:
     """Reflect-padded audio (B, 160 T + 400) fp32 -> (B, T, n_mels) unclamped
     log10 mel. CUDA tensors launch the Hopper kernel on the current stream
     or raise; CPU tensors take `log_mel_kernel_reference`."""
-    global launches
     if audio_padded.device.type == "cpu":
         return log_mel_kernel_reference(audio_padded, n_mels)
     if audio_padded.device.type != "cuda":
@@ -119,7 +119,7 @@ def log_mel_kernel(audio_padded: torch.Tensor, n_mels: int) -> torch.Tensor:
                  stream)
     if err != 0:
         raise RuntimeError(f"log-mel kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out
 
 

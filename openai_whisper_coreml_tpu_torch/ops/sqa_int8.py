@@ -27,7 +27,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ._build import load_library
+from ._build import count_launch, load_library
 
 HEAD_DIM = 64  # the kernel is compiled for D = 64 (every Whisper size)
 MAX_COLS = 12288  # kMaxCols in the kernels: fp32 logits in 48 KB of shared memory
@@ -35,7 +35,8 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 Bound = Union[int, torch.Tensor]
 
-# Kernel launches made by `sqa_int8` (a plain count; callers reset it).
+# Kernel launches made by `sqa_int8` (an int that callers reset;
+# `count_launch` adds to it under a lock).
 launches = 0
 
 _ENTRY = {torch.bfloat16: "whisper_sqa_int8_bf16",
@@ -176,7 +177,6 @@ def sqa_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     CUDA tensors launch the Hopper kernel (q bf16 or fp32, D = 64) on the
     current stream or raise; CPU tensors take `sqa_int8_reference`.
     """
-    global launches
     if q.device.type == "cpu":
         return sqa_int8_reference(q, k8, k_scale, v8, v_scale, pos, valid_from)
     if q.device.type != "cuda":
@@ -198,7 +198,7 @@ def sqa_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
                  v_scale.data_ptr(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sqa_int8 kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out
 
 
@@ -237,7 +237,6 @@ def sqa_int8_layers(k8: torch.Tensor, k_scale: torch.Tensor, v8: torch.Tensor,
     n_layers = k8.shape[0]
 
     def attend(q: torch.Tensor, l: int) -> torch.Tensor:
-        global launches
         if not 0 <= l < n_layers:
             raise IndexError(f"layer {l} of {n_layers}")
         fn = fns.get(q.dtype)
@@ -249,7 +248,7 @@ def sqa_int8_layers(k8: torch.Tensor, k_scale: torch.Tensor, v8: torch.Tensor,
                  out.data_ptr())
         if err != 0:
             raise RuntimeError(f"sqa_int8 kernel launch failed: CUDA error {err}")
-        launches += 1
+        count_launch(__name__)
         return out
 
     return attend

@@ -25,11 +25,12 @@ import functools
 
 import torch
 
-from ._build import load_library
+from ._build import count_launch, load_library
 from .sqa_int8 import (HEAD_DIM, MASK_VALUE, MAX_COLS, Bound, LayerAttend, SqaArgs,
                        bound_tensor, check_dmajor, column_mask, launch_args)
 
-# Kernel launches made by `sqa_self` (a plain count; callers reset it).
+# Kernel launches made by `sqa_self` (an int that callers reset;
+# `count_launch` adds to it under a lock).
 launches = 0
 
 _ENTRY = {torch.bfloat16: "whisper_sqa_self_bf16",
@@ -74,7 +75,6 @@ def sqa_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Bound,
     first, as the TPU wrapper does; bf16 or fp32 output) on the current
     stream or raise; CPU tensors take `sqa_self_reference`.
     """
-    global launches
     if q.device.type == "cpu":
         return sqa_self_reference(q, k, v, pos, valid_from)
     if q.device.type != "cuda":
@@ -102,7 +102,7 @@ def sqa_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Bound,
         err = fn(args, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sqa_self kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch(__name__)
     return out
 
 
@@ -140,7 +140,6 @@ def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
     tables = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in (k, v)]
 
     def attend(q: torch.Tensor, l: int) -> torch.Tensor:
-        global launches
         if not 0 <= l < n_layers:
             raise IndexError(f"layer {l} of {n_layers}")
         if (q.dtype != torch.bfloat16 or q.shape != q_shape or not q.is_contiguous()
@@ -150,7 +149,7 @@ def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
         err = fn(ref, q.data_ptr(), *(p + l * step for p, step in tables), out.data_ptr())
         if err != 0:
             raise RuntimeError(f"sqa_self kernel launch failed: CUDA error {err}")
-        launches += 1
+        count_launch(__name__)
         return out
 
     return attend

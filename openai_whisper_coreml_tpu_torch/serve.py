@@ -14,16 +14,18 @@ reassembles one openai-schema result per request:
     temperature 0;
   * two schedulers: "static" decodes fixed batches of `batch_size` windows
     with the per-window temperature ladder; "continuous" (`serve_cb.py`)
-    refills finished rows mid-flight at per-row positions;
+    refills finished rows mid-flight at per-row positions, and with
+    `beam_size` refills K-row beam groups on the t=0 rung
+    (`serve_cb_beam.py`), requeueing gate failures into the sampled engine
+    for the t>0 rungs;
   * the per-window no-speech skip, the energy-VAD gate and `initial_prompt`
     on each request's first window.
 
 Batches are not padded to `batch_size` (JAX pads them to reuse one compiled
 graph; PyTorch runs eagerly). Left out of `ServeOptions`: `spec_k`,
 `spec_fallback` and `spec_fallback_threshold`, which act only with a draft
-model (speculative decoding is not ported). `word_timestamps=True` and the
-continuous scheduler with `beam_size` raise NotImplementedError: they need
-`timing.py` and `serve_cb_beam.py` (ROADMAP.md, Queue 1).
+model (speculative decoding is not ported). `word_timestamps=True` raises
+NotImplementedError: it needs `timing.py` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -84,10 +86,6 @@ class ServeOptions:
                 "ported to PyTorch yet (ROADMAP.md, Queue 1)")
         if self.scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.scheduler == "continuous" and self.beam_size is not None:
-            raise NotImplementedError(
-                "scheduler='continuous' with beam_size needs serve_cb_beam.py, "
-                "not ported to PyTorch yet (ROADMAP.md, Queue 1)")
 
 
 @dataclasses.dataclass
@@ -150,12 +148,24 @@ def transcribe_batch(
     mels = _batched_mels(model, arrays)
 
     def decode_round(wins: List[_Window]) -> None:
-        if options.scheduler == "continuous":
-            from .serve_cb import ContinuousBatcher
-
-            ContinuousBatcher(model, options).run(wins)
-        else:
+        if options.scheduler == "static":
             _decode_windows_static(model, wins, options)
+            return
+        from .serve_cb import ContinuousBatcher
+
+        if options.beam_size is None:
+            ContinuousBatcher(model, options).run(wins)
+            return
+        from .serve_cb_beam import BeamContinuousBatcher
+
+        # beam on the t=0 rung under group-level continuous batching; gate
+        # failures requeue into the sampled engine for the t>0 rungs (openai
+        # ladder semantics: beam only on the greedy rung)
+        retries = BeamContinuousBatcher(model, options).run(wins)
+        t_rest = tuple(t for t in options.temperature if t > 0)
+        if retries and t_rest:
+            ContinuousBatcher(model, dataclasses.replace(
+                options, temperature=t_rest, beam_size=None)).run(retries)
 
     # -- speculative seek ------------------------------------------------
     # openai's transcribe() advances window N+1 to where window N's LAST

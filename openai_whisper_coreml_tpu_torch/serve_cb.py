@@ -166,27 +166,33 @@ def decode_chunk(
     return st, step
 
 
-def scatter_rows(state: CBState, rows: CBState, idx: List[int]) -> CBState:
+def scatter_rows(state: NamedTuple, rows: NamedTuple, idx: List[int],
+                 group_idx: Optional[List[int]] = None,
+                 group_fields: Tuple[str, ...] = ()) -> NamedTuple:
     """Insert a refill group's rows at batch rows `idx` (in place for the
-    caches and cross-KV; the per-row vectors are rebuilt)."""
-    dst = torch.as_tensor(idx, device=state.tokens.device)
+    caches and cross-KV; the per-row vectors are rebuilt). A beam state
+    (`serve_cb_beam.CBBeamState`) also has per-group fields: those named in
+    `group_fields` go to the group slots `group_idx`."""
+    dev = state.tokens.device
+    dst = torch.as_tensor(idx, device=dev)
+    dst_group = None if group_idx is None else torch.as_tensor(group_idx, device=dev)
 
-    def put(a, r, axis):
+    def put(a, r, axis, where):
         if axis == 0:
             a = a.clone()
-            a[dst] = r
+            a[where] = r
         else:
-            a[:, dst] = r  # the (L, B, ...) caches, in place
+            a[:, where] = r  # the (L, B, ...) caches, in place
         return a
 
     fields = {}
-    for name in CBState._fields:
+    for name in type(state)._fields:
         a, r = getattr(state, name), getattr(rows, name)
         if name in ("cache", "cross_kv"):
-            fields[name] = type(a)(*(put(x, y, 1) for x, y in zip(a, r)))
+            fields[name] = type(a)(*(put(x, y, 1, dst) for x, y in zip(a, r)))
         else:
-            fields[name] = put(a, r, 0)
-    return CBState(**fields)
+            fields[name] = put(a, r, 0, dst_group if name in group_fields else dst)
+    return type(state)(**fields)
 
 
 # ---------------------------------------------------------------------------

@@ -159,6 +159,15 @@ def _load_wav_python(path_or_file) -> tuple[np.ndarray, int]:
     return data, rate
 
 
+def decode_wav_bytes(raw: bytes, sample_rate: int = 16_000) -> np.ndarray:
+    """Decode in-memory WAV bytes to float32 mono at `sample_rate` (the HTTP
+    upload path; the file loader's width dispatch)."""
+    import io
+
+    data, rate = _load_wav_python(io.BytesIO(raw))
+    return resample(data, rate, sample_rate)
+
+
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resampling to target_sr (no-op when rates match)."""
     if orig_sr == target_sr:

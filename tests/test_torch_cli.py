@@ -134,7 +134,6 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--stream"], "stream.py"),
     (["--draft-model", "tiny"], "speculative.py"),
     (["--word-timestamps"], "timing.py"),
     (["--profile-dir", "trace"], "profile"),
@@ -143,6 +142,59 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
 def test_cli_unported_flags_raise(flags, what):
     with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
         tcli.main(["a.wav"] + flags)
+
+
+def test_cli_stream_prints_what_jax_prints(models, tmp_path, monkeypatch, capsys):
+    """`--stream` feeds the file in 1 s chunks through StreamingTranscriber
+    and prints the confirmed text as it comes, then the final flush: the
+    same output as JAX's CLI."""
+    jm, tm = models
+    monkeypatch.setattr("openai_whisper_coreml_tpu.load_model", lambda *a, **k: jm)
+    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model",
+                        lambda *a, **k: tm)
+    t = np.arange(4 * 16000) / 16000
+    path = str(tmp_path / "short.wav")
+    taudio_io.save_wav(path, (0.2 * np.sin(2 * np.pi * 230 * t)).astype(np.float32))
+    outs = []
+    for main in (jcli.main, tcli.main):
+        assert main([path, "--stream", "--language", "en"]) == 0
+        out, err = capsys.readouterr()
+        outs.append(out)
+        assert "streamed 4.0s" in err
+    assert outs[1] == outs[0] and outs[1].endswith("\n")
+
+
+def test_cli_stream_ignores_the_cache_flags_as_jax_does(models, tmp_path, monkeypatch,
+                                                       capsys):
+    """`--stream` decodes with a bf16 cross-KV and cache whatever
+    `--kv-dtype` and `--cache-dtype` say, as JAX's CLI does: with both set
+    to int8 the port prints JAX's output, which is the default flags', and
+    every tick decodes with bf16 caches."""
+    from openai_whisper_coreml_tpu_torch import stream as tstream
+
+    jm, tm = models
+    monkeypatch.setattr("openai_whisper_coreml_tpu.load_model", lambda *a, **k: jm)
+    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model",
+                        lambda *a, **k: tm)
+    caches = []
+
+    def recording_decode(model, mel, options):
+        caches.append((options.kv_dtype, options.cache_dtype))
+        return decode(model, mel, options)
+
+    decode = tstream.decode
+    monkeypatch.setattr(tstream, "decode", recording_decode)
+    t = np.arange(3 * 16000) / 16000
+    path = str(tmp_path / "short.wav")
+    taudio_io.save_wav(path, (0.2 * np.sin(2 * np.pi * 250 * t)).astype(np.float32))
+    outs = []
+    for main, flags in ((jcli.main, ["--kv-dtype", "int8", "--cache-dtype", "int8"]),
+                        (tcli.main, ["--kv-dtype", "int8", "--cache-dtype", "int8"]),
+                        (tcli.main, [])):
+        assert main([path, "--stream", "--language", "en"] + flags) == 0
+        outs.append(capsys.readouterr()[0])
+    assert outs[1] == outs[0] == outs[2]
+    assert caches and set(caches) == {("bf16", "bf16")}
 
 
 def test_cli_cache_dtype_int8_raises(models, wav, tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
 """The Hopper kernels (flash attention, log-mel, decode self-attention K3,
-int8 single-query attention K6) against their plain versions, on the card.
+int8 single-query attention K6, int8 x int8 cross-attention K2) against
+their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere. The file
 imports no JAX, so it runs on a machine without it:
@@ -20,6 +21,7 @@ from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
 from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
 from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
 from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
+from openai_whisper_coreml_tpu_torch.ops import sqa_v3 as sv
 
 NO_CARD = "needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)"
 
@@ -155,6 +157,37 @@ def test_sqa_int8_matches_plain_version_on_card(shape, dtype):
         torch.cuda.synchronize()
         assert si.launches == before + 1 and out.dtype == dtype
         _close(out, si.sqa_int8_reference(q, k8, ks, v8, vs, pos, vf), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("av_int8", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,s_len", [((4, 20, 1536), 1500), ((24, 20, 1536), 1500),
+                                         ((2, 2, 9), 7), ((3, 4, 256), None)])
+def test_sqa_v3_matches_plain_version_on_card(shape, s_len, dtype, av_int8):
+    """K2 against its plain version in both A.V modes; the lane padding
+    past s_len, poisoned with 127 and 1e6 scales, leaves the kernel's
+    output bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h, s = shape
+    q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
+    k8, ks = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    v8, vs = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    before = sv.launches
+    out = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av_int8)
+    torch.cuda.synchronize()
+    assert sv.launches == before + 1 and out.dtype == dtype
+    _close(out, sv.sqa_cross_int8_reference(q, k8, ks, v8, vs, s_len=s_len,
+                                            av_int8=av_int8), dtype)
+    if s_len is not None:
+        for x, val in ((k8, 127), (v8, 127), (ks, 1e6), (vs, 1e6)):
+            x[..., s_len:] = val
+        poisoned = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av_int8)
+        torch.cuda.synchronize()
+        assert torch.equal(out, poisoned)
 
 
 @pytest.mark.cuda
