@@ -13,7 +13,9 @@ Phases (each raises, so the script exits non-zero, on failure):
        K1's causal mode at the decoder's (4,448,20,64) and ragged T = 37
        and 130, and K5 (the same kernel past 1536 keys) at (2,2048,20,64)
        non-causal and causal, bf16 and fp32, timed beside
-       scaled_dot_product_attention;
+       scaled_dot_product_attention (its CUDA-event time, and its device
+       time summed over the kernels it launches), with the kernel's
+       achieved TFLOP/s;
        K4 log-mel at (4, 480 000) x 128, (3, 112 000) x 80 and a one-hour
        bucket (1, 61 920 000) x 128, with both's peak device memory;
        K3 decode self-attention at (4,20,64,256) with per-row bounds, at
@@ -44,7 +46,9 @@ Phases (each raises, so the script exits non-zero, on failure):
      both A.V modes over 3.0 GB of int8 K/V made on the card; K2 held
      against its plain version at the chain's shapes (layer 0 and the last
      chained layer, both A.V modes) and against the inline-dequant oracle;
-  6. the main paths on large-v3 with random bf16/int8 weights: serve (a
+  6. the main paths on large-v3 with random bf16/int8 weights: the encoder
+     alone on four 30 s windows (wall per encode, device-busy time and
+     K1's share of it; 32 K1 launches per encode), serve (a
      batch of 4 windows at 224 tokens, then 1 at 64, then language ID),
      transcribe of ~70 s, serve_batch (six requests, static scheduler with
      the bf16 cache, continuous with the int8 cache, then beam 2 under the
@@ -160,22 +164,35 @@ def alternate(plain, kernel, iters=20) -> tuple[float, float, dict]:
             min(times["plain"], times["plain2"]), times)
 
 
-def device_ms(fn, kernel: str, iters=20) -> float:
+def device_ms(fn, kernel: str | None, iters=20) -> float:
     """Device time per call of the CUDA kernels whose name contains
     `kernel`, from torch.profiler: the kernel's own time, without the
-    wrapper's host work that a CUDA-event time of a short call includes."""
+    wrapper's host work that a CUDA-event time of a short call includes.
+    With `kernel` None, the time of every kernel the call launches, summed
+    (a library call may launch several)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
     # the profiler's activity buffer may drop a record of a short kernel
-    # now and then; more records than launches would mean a wrong name
+    # now and then, and once dropped all twenty of K6's: a run that saw none
+    # is profiled again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.name)]
+        if us:
+            break
+        log(f"profiler saw no {kernel or 'device'} records; profiling again")
+    if kernel is None:
+        if not us:
+            raise AssertionError("profiler saw no device time")
+        return sum(us) / iters / 1e3
+    # more records than launches would mean a wrong name
     if not 0 < len(us) <= iters:
         raise AssertionError(f"profiler saw {len(us)} {kernel} launches, "
                              f"expected {iters}")
@@ -183,6 +200,12 @@ def device_ms(fn, kernel: str, iters=20) -> float:
         log(f"profiler saw {len(us)} of {iters} {kernel} launches; the mean is "
             f"over those")
     return sum(us) / len(us) / 1e3
+
+
+def timed_cuda_ms(fn) -> tuple[float, float]:
+    """A library call's CUDA-event ms and its device ms, summed over every
+    kernel it launches."""
+    return cuda_ms(fn), device_ms(fn, None)
 
 
 def bound(nbytes: float, ops: float, op_type: str) -> dict:
@@ -214,7 +237,7 @@ def build_kernels(modules) -> None:
         info = _build.BUILD_INFO[name]
         log(f"  {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log("    ptxas:", line.strip())
 
 
@@ -254,19 +277,22 @@ def check_flash(fa) -> dict:
         lambda: fa.flash_attention_reference(q, k, v),
         lambda: fa.flash_attention(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    library_ms, library_dev_ms = timed_cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt))
     dev_ms = device_ms(lambda: fa.flash_attention(q, k, v), "fa_fwd_bf16")
     b, t, h, d = q.shape
+    flops = 4 * b * h * t * t * d
     log(f"flash (4,1500,20,64) bf16 on {card()}: kernel {kernel_ms:.4f} ms "
-        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms (runs: {times})")
+        f"(device {dev_ms:.4f} ms, {flops / dev_ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+        f"(device {library_dev_ms:.4f} ms) (runs: {times})")
     return {"name": "flash_attention", "tpu_kernel": "K1", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/flash_attention.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/flash_attention.py:57",
             "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms,
-            **bound(4 * b * t * h * d * 2, 4 * b * h * t * t * d, "bf16"),
-            "library_ms": library_ms}
+            "tflops": flops / dev_ms / 1e9, "plain_ms": plain_ms,
+            **bound(4 * b * t * h * d * 2, flops, "bf16"),
+            "library_ms": library_ms, "library_device_ms": library_dev_ms}
 
 
 def causal_pairs(t: int) -> int:
@@ -307,19 +333,22 @@ def check_flash_causal(fa) -> list:
             lambda: fa.flash_attention_reference(q, k, v, causal=causal),
             lambda: fa.flash_attention(q, k, v, causal=causal))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        library_ms, library_dev_ms = timed_cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                            "fa_fwd_bf16")
         b, t, h, d = q.shape
-        pairs = causal_pairs(t) if causal else t * t
-        lim = bound(4 * b * t * h * d * 2, 4 * b * h * pairs * d, "bf16")
+        flops = 4 * b * h * (causal_pairs(t) if causal else t * t) * d
+        lim = bound(4 * b * t * h * d * 2, flops, "bf16")
         log(f"{which} flash {tuple(q.shape)} causal={causal} bf16 on {card()}: "
-            f"kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-            f"bound {lim['bound_ms']:.5f} ms ({lim['bound_by']}) (runs: {times})")
-        record = {"ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                  **lim, "library_ms": library_ms, "shape": list(q.shape),
+            f"kernel {kernel_ms:.4f} ms (device {dev_ms:.4f} ms, "
+            f"{flops / dev_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms (device "
+            f"{library_dev_ms:.4f} ms), bound {lim['bound_ms']:.5f} ms "
+            f"({lim['bound_by']}) (runs: {times})")
+        record = {"ms": kernel_ms, "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
+                  "plain_ms": plain_ms, **lim, "library_ms": library_ms,
+                  "library_device_ms": library_dev_ms, "shape": list(q.shape),
                   "causal": causal}
         if which == "K1-causal":
             records.append({"name": "flash_attention_causal", "tpu_kernel": "K1-causal",
@@ -1611,6 +1640,30 @@ def host_profile(run, steps: int) -> dict:
                              for (f, _, name), v in top]}
 
 
+def encoder_slice(model, kernels) -> dict:
+    """The large-v3 encoder (bf16, int8 weights) on four 30 s windows:
+    wall per `encode` (best of five), device-busy time per encode and K1's
+    share of it (torch.profiler), through `tools/torch_encode_time.py`'s
+    `measure`. A main path: K1 launches exactly 32 times per encode."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_encode_time
+
+    audio = (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
+             ).astype(np.float32)
+    idle = tuple(k for k in kernels if k not in ("flash_attention", "log_mel"))
+    with main_path("encoder", kernels, model.cfg.n_text_layer, idle=idle) as calls:
+        mel = model.log_mel(audio)
+        result = torch_encode_time.measure(model, mel, runs=5)
+    if result["flash_launches"] != model.cfg.n_audio_layer:
+        raise AssertionError(f"encoder: {result['flash_launches']} K1 launches per "
+                             f"encode, expected {model.cfg.n_audio_layer}")
+    log(f"[encoder] large-v3 B=4 on {card()}: best wall {result['best_wall_ms']:.3f} ms "
+        f"per encode (runs {[round(w, 3) for w in result['wall_ms']]}), device-busy "
+        f"{result['device_busy_ms']:.3f} ms, K1 {result['flash_device_ms']:.3f} ms "
+        f"({100 * result['flash_share']:.1f}%); {calls['encode']} encodes")
+    return result
+
+
 def profile_step(model, ss, si):
     """5 large-v3 B=4 decode steps at a 224-token horizon (256-column bf16
     cache, int8 cross-KV, positions 100-104) four ways: the decode kernels
@@ -1772,6 +1825,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"large-v3 int8 loaded in {time.perf_counter() - t0:.1f} s, "
         f"{model.num_params} parameters")
+    encoder = encoder_slice(model, kernels)
     serve_slice(wt, model, kernels)
     transcribe_slice(model, kernels)
     serve_batch_slice(wt, model, kernels)
@@ -1792,6 +1846,7 @@ def main() -> int:
 
     for record in records:
         record["launches"] = TOTALS[record["name"]]
+    records[0]["encoder_large_v3_b4"] = encoder
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card())

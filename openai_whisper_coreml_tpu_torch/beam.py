@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from .models import decoder as dec_mod
+from .quantize import ieee_div
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,4 +248,4 @@ def rank_sequences(scores: torch.Tensor, lengths: torch.Tensor,
     lengths = torch.clamp(lengths.float(), min=1.0)
     if length_penalty is None:
         return scores / lengths
-    return scores / (((5.0 + lengths) / 6.0) ** length_penalty)
+    return scores / (ieee_div(5.0 + lengths, 6.0) ** length_penalty)

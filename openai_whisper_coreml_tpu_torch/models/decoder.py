@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import WhisperConfig
 from ..ops.sqa_int8 import LayerAttend, sqa_int8_layers
 from ..ops.sqa_self import sqa_self_layers
+from ..quantize import ieee_div
 from .layers import (MLP, Attention, LayerNorm, frozen, layer_norm,
                      layer_slice, merge_heads, self_attention, split_heads)
 
@@ -159,7 +160,8 @@ def to_dmajor(x: torch.Tensor, n_head: int) -> torch.Tensor:
 def quantize_kv_column(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., D, S) float -> (int8 values, (..., 1, S) fp32 scales)."""
     x32 = x.float()
-    scale = torch.clamp(x32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-12)
+    scale = torch.clamp(ieee_div(x32.abs().amax(dim=-2, keepdim=True), 127.0),
+                        min=1e-12)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -6,9 +6,11 @@ package's `ops/flash_attention.py`: `_fa_kernel_single` (K1: all keys in
 one <= 1536 block; non-causal for Whisper's encoder at T=1500, causal for
 the decoder's teacher forcing) and `_fa_kernel` (K5: the online-softmax
 kernel over several KV blocks, which JAX runs when Tk > 1536). One CUDA
-kernel, `csrc/flash_attention.cu`, computes both: it walks 64-key tiles
-with the online recurrence whatever Tk is, and in causal mode skips the
-tiles above the diagonal.
+kernel, `csrc/flash_attention.cu`, computes both: it walks key tiles with
+the online recurrence whatever Tk is, and in causal mode skips the tiles
+above the diagonal. In bf16 it is a warp-specialised Hopper kernel (TMA
+loads into a ring of shared-memory stages, both products on `wgmma`); in
+fp32 a plain SIMT kernel, kept for parity checks.
 
 On a CUDA tensor the forward launches that kernel or raises; on a CPU
 tensor it runs `flash_attention_reference`, the same math in PyTorch.
@@ -78,10 +80,8 @@ def _check_causal(q: torch.Tensor, k: torch.Tensor) -> None:
                          f"{q.shape[1]} vs {k.shape[1]}")
 
 
-@functools.cache
-def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library; sets its C types."""
-    lib = load_library("flash_attention", "flash_attention.cu")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C types of a built kernel library's entry points."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -89,6 +89,12 @@ def load_kernel() -> ctypes.CDLL:
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
+
+
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    return bind(load_library("flash_attention", "flash_attention.cu"))
 
 
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -104,7 +110,9 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"B, H: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if k.shape[1] < 1:
         raise ValueError("flash kernel needs at least one key")
-    vec = 16 // q.element_size()  # the kernel reads 16-byte vectors
+    # 16-byte vectors (fp32) and TMA's rule for bf16: a 16-byte-aligned
+    # base and strides that are multiples of 16 bytes
+    vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if (x.stride(3) != 1 or x.data_ptr() % 16
                 or any(s % vec for s in x.stride()[:3])):
@@ -127,7 +135,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  b, tq, k.shape[1], h, *strides, d ** -0.5, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
+                           f"error {err} (1: a tensor map did not encode)")
     if k.shape[1] > BLOCK_K:
         count_launch(__name__, "launches_online")
     elif causal:

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..quantize import ieee_div
 from ._build import count_launch
 from .sqa_int8 import MASK_VALUE, SqaArgs, _check_int8_kv, launch_args
 from .sqa_int8 import load_kernel as _load_sqa
@@ -41,22 +42,11 @@ _ENTRY = {torch.bfloat16: "whisper_sqa_v3_bf16",
           torch.float32: "whisper_sqa_v3_f32"}
 
 
-def _div(x, y) -> torch.Tensor:
-    """x / y as one IEEE division, as the kernel and XLA divide. On a CUDA
-    tensor PyTorch turns a division by a Python number into a product with
-    its reciprocal, and `number / tensor` is a reciprocal times the number
-    on any device: each rounds twice, and a scale one ulp off flips a
-    rounded int8 value now and then."""
-    ref = x if torch.is_tensor(x) else y
-    x, y = (t if torch.is_tensor(t) else torch.full_like(ref, t) for t in (x, y))
-    return torch.div(x, y)
-
-
 def quantize_q_rows(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, D) float -> (int8, (B, H, 1) fp32 row scales); rounds half to
     even, as jnp.round does."""
     q32 = q.float()
-    scale = _div(q32.abs().amax(dim=-1, keepdim=True), 127.0).clamp(min=1e-12)
+    scale = ieee_div(q32.abs().amax(dim=-1, keepdim=True), 127.0).clamp(min=1e-12)
     q8 = torch.clamp(torch.round(q32 / scale), -127, 127).to(torch.int8)
     return q8, scale
 
@@ -86,9 +76,9 @@ def sqa_cross_int8_reference(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.T
     pv = p * v_scale[:, :, 0, :]
     if av_int8:
         wmax = pv.amax(dim=-1, keepdim=True).clamp(min=1e-20)
-        w8 = torch.clamp(torch.round(pv * _div(127.0, wmax)), -127, 127)
+        w8 = torch.clamp(torch.round(pv * ieee_div(127.0, wmax)), -127, 127)
         acc = torch.einsum("bhs,bhds->bhd", w8.double(), v8.double()).float()
-        out = acc * _div(wmax, 127.0) / denom
+        out = acc * ieee_div(wmax, 127.0) / denom
     else:
         acc = torch.einsum("bhs,bhds->bhd", pv.bfloat16().float(), v8.float())
         out = acc / denom

@@ -19,13 +19,25 @@ Params = Dict[str, Any]
 MIN_QUANT_SIZE = 1 << 16  # don't bother below 64k elements
 
 
+def ieee_div(x, y) -> torch.Tensor:
+    """x / y as one IEEE division, as XLA and the kernels divide; either may
+    be a Python number. On a CUDA tensor PyTorch turns a division by a
+    Python number into a product with its reciprocal, and `number / tensor`
+    is a reciprocal times the number on any device: each rounds twice, and a
+    scale one ulp off flips a rounded int8 value now and then. Dividing
+    tensor by tensor rounds once on both devices."""
+    ref = x if torch.is_tensor(x) else y
+    x, y = (t if torch.is_tensor(t) else torch.full_like(ref, t) for t in (x, y))
+    return torch.div(x, y)
+
+
 def quantize_linear(w: torch.Tensor) -> Params:
     """(..., in, out) float weights -> int8 + per-output-channel fp32 scale.
 
     Stacked per-layer weights (L, in, out) get per-(layer, out) scales.
     """
     w32 = w.float()
-    scale = w32.abs().amax(dim=-2, keepdim=True) / 127.0
+    scale = ieee_div(w32.abs().amax(dim=-2, keepdim=True), 127.0)
     scale = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return {"w_q": q, "scale": scale}

@@ -10,10 +10,12 @@ imports no JAX, so it runs on a machine without it:
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 
 from openai_whisper_coreml_tpu_torch import audio as taudio
+from openai_whisper_coreml_tpu_torch import quantize as tq
 from openai_whisper_coreml_tpu_torch.config import tiny_test_config
 from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
 from openai_whisper_coreml_tpu_torch.models.whisper import build_model
@@ -379,3 +381,96 @@ def test_encoder_projection_gets_its_gradient_through_the_kernel():
     assert grads[True].abs().max().item() > 0
     scale = grads[False].abs().max().item()
     assert (grads[True] - grads[False]).abs().max().item() <= 1e-4 * scale
+
+
+# Key and query counts around the bf16 kernel's 128-key stage (and K5's
+# 1536-key boundary), and around its query tile: three warpgroups of 64 rows,
+# 192 rows a CTA (at Tq = 37 two warpgroups have no rows, at 129 the third
+# has one)
+RAGGED_TK = (1, 63, 64, 65, 127, 128, 129, 1500, 1537, 2048)
+RAGGED_TQ = (1, 37, 128, 129, 191, 192, 193)
+
+
+def _qkv(b, tq, tk, h, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, t, h, 64, generator=g, device="cuda").to(dtype)
+            for t in (tq, tk, tk)]
+
+
+def _one_counted_launch(q, k, v, causal, dtype):
+    """One call adds one to the counter of the TPU kernel it stands in for
+    and to no other; its output is finite and within the gate."""
+    before = _counts()
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    which = 2 if k.shape[1] > fa.BLOCK_K else (1 if causal else 0)
+    assert [a - c for a, c in zip(_counts(), before)] == [int(i == which)
+                                                         for i in range(3)]
+    assert torch.isfinite(out).all()
+    _close(out, fa.flash_attention_reference(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tk", RAGGED_TK)
+@pytest.mark.parametrize("tq", RAGGED_TQ)
+def test_kernel_matches_plain_version_at_ragged_tiles_on_card(tq, tk, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _one_counted_launch(*_qkv(2, tq, tk, 2, dtype, 10_000 * tq + tk), False, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", sorted(set(RAGGED_TK + RAGGED_TQ)))
+def test_causal_kernel_matches_plain_version_at_ragged_tiles_on_card(t, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _one_counted_launch(*_qkv(2, t, t, 2, dtype, t), True, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,causal", [(65, False), (193, False), (1500, False),
+                                      (1537, False), (129, True), (193, True),
+                                      (448, True)])
+def test_kernel_never_reads_a_batchs_padding_rows_on_card(t, causal, dtype):
+    """q, k, v are [:, :T] views of (B, T + pad, H, 64) buffers whose pad
+    rows are NaN: a load (or tensor map) that reads past a batch's last row
+    puts NaN into the output."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(t)
+    bufs = [torch.randn(3, t + 64, 2, 64, generator=g, device="cuda").to(dtype)
+            for _ in range(3)]
+    for buf in bufs:
+        buf[:, t:] = float("nan")
+    _one_counted_launch(*(buf[:, :t] for buf in bufs), causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["quantize_kv_column", "quantize_linear", "ieee_div"])
+def test_quantizers_are_bit_equal_on_card_and_cpu(which):
+    """int8 codes and fp32 scales are the same bits on the card as on the
+    CPU at the model's shapes (large-v3 cross-KV columns, a 1280 x 1280
+    weight): every Python-number division goes through one IEEE division."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    rng = np.random.default_rng(7)
+    if which == "quantize_kv_column":
+        x = rng.standard_normal((4, 20, 64, 1500)).astype(np.float32)
+        fn = dec_mod.quantize_kv_column
+    elif which == "quantize_linear":
+        x = (0.02 * rng.standard_normal((1280, 1280))).astype(np.float32)
+        fn = lambda w: tuple(tq.quantize_linear(w).values())  # noqa: E731
+    else:
+        x = (4 * rng.standard_normal((1280, 1280))).astype(np.float32)
+        fn = lambda t: (tq.ieee_div(t.abs().amax(dim=-2, keepdim=True), 127.0),  # noqa: E731
+                        tq.ieee_div(5.0 + t, 6.0), tq.ieee_div(127.0, t))
+    cpu = fn(torch.from_numpy(x))
+    card = fn(torch.from_numpy(x).cuda())
+    for a, b in zip(cpu, card, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b.cpu())

@@ -62,3 +62,20 @@ def test_int8_linear_matches_jax(rng):
                                np.asarray(ref), atol=1e-5)
     with pytest.raises(ValueError, match="exactly one"):
         Linear({"b": torch.from_numpy(b)})
+
+
+@pytest.mark.parametrize("divisor", [127.0, 6.0, 3.0])
+def test_ieee_div_equals_tensor_division(rng, divisor):
+    """The helper divides tensor by tensor, once, with either side a Python
+    number: bit-equal to torch.div of two tensors, and to numpy's fp32
+    division."""
+    x = (rng.standard_normal((64, 257)) * 3).astype(np.float32)
+    xt = torch.from_numpy(x)
+    full = torch.full_like(xt, divisor)
+    for got, want, ref in ((tq.ieee_div(xt, divisor), torch.div(xt, full),
+                            x / np.float32(divisor)),
+                           (tq.ieee_div(divisor, xt), torch.div(full, xt),
+                            np.float32(divisor) / x)):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(got.numpy(), ref)
