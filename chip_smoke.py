@@ -26,6 +26,14 @@ Phases (each raises, so the script exits non-zero, on failure):
        self geometry (4,20,64,256) with per-row bounds, the 8 rows of
        continuous beam (cross, and a 448-column self cache), and with fp32
        q;
+       K3 and K6 also at the edges of their column split across a cluster
+       (pos inside the first slice, valid_from inside a late slice, pos past
+       the last column, valid_from > pos), bf16 and fp32 q, each case
+       launched twice (the same bits) and with its out-of-bounds columns
+       poisoned (the same bits); their device times warm (one layer's
+       K/V, in L2) and cold (through the decode step's entries over 32
+       layers) and the split sweep (tools/torch_sqa_time.py), and K3 beside
+       scaled_dot_product_attention's device time;
        K2 int8 x int8 cross-attention at (4,20,64,1536) with s_len=1500,
        bf16 and fp32 q, both A.V modes, the padding poisoned (output
        bit-identical), against JAX's inline-dequant oracle too, timed
@@ -164,36 +172,28 @@ def alternate(plain, kernel, iters=20) -> tuple[float, float, dict]:
             min(times["plain"], times["plain2"]), times)
 
 
+def sqa_time():
+    """tools/torch_sqa_time.py: the one owner of the profiler loop, the
+    decode-step profile's inputs and the host timing per call."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    import torch_sqa_time
+
+    return torch_sqa_time
+
+
 def device_ms(fn, kernel: str | None, iters=20) -> float:
     """Device time per call of the CUDA kernels whose name contains
     `kernel`, from torch.profiler: the kernel's own time, without the
     wrapper's host work that a CUDA-event time of a short call includes.
     With `kernel` None, the time of every kernel the call launches, summed
     (a library call may launch several)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    # the profiler's activity buffer may drop a record of a short kernel
-    # now and then, and once dropped all twenty of K6's: a run that saw none
-    # is profiled again, twice at most
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.name)]
-        if us:
-            break
-        log(f"profiler saw no {kernel or 'device'} records; profiling again")
+    us = sqa_time().device_us(lambda i: fn(), iters, kernel)
     if kernel is None:
-        if not us:
-            raise AssertionError("profiler saw no device time")
         return sum(us) / iters / 1e3
     # more records than launches would mean a wrong name
-    if not 0 < len(us) <= iters:
+    if len(us) > iters:
         raise AssertionError(f"profiler saw {len(us)} {kernel} launches, "
                              f"expected {iters}")
     if len(us) < iters:
@@ -486,33 +486,105 @@ def _bounds(b, c, g, per_row: bool):
     return pos, vf
 
 
+# (pos, valid_from) of a row at the edges of K3's and K6's column split
+SPLIT_EDGES = {"pos in the first slice": lambda c: (min(2, c - 1), 0),
+               "valid_from in a late slice": lambda c: (c - 1, c - 1 - c // 10),
+               "pos past the last column": lambda c: (c + 3, 1),
+               "valid_from > pos": lambda c: (c // 2, c // 2 + 1)}
+
+
+def _edge_bounds(b, c):
+    """[(name, pos, valid_from)]: every row at one edge of SPLIT_EDGES,
+    then the rows cycling through them."""
+    cases = [(name, *(torch.full((b,), x, dtype=torch.int32, device="cuda")
+                      for x in edge(c))) for name, edge in SPLIT_EDGES.items()]
+    mixed = [list(SPLIT_EDGES.values())[i % len(SPLIT_EDGES)](c) for i in range(b)]
+    cases.append(("edges mixed", *(torch.tensor(x, dtype=torch.int32, device="cuda")
+                                   for x in zip(*mixed))))
+    return cases
+
+
+def _check_split_kernel(name, wrapper, plain, q, kv, pos, vf, bf16: bool) -> float:
+    """One case of K3 or K6: against the plain version; a second launch
+    gives the same bits; columns outside each row's bounds poisoned (NaN
+    in bf16 K/V, int8 K/V at 127 with NaN scales) leave the output
+    bit-identical. Rows with no column in bounds (which weigh every column)
+    are left out of the poisoning."""
+    out = wrapper(q, *kv, pos, vf)
+    again = wrapper(q, *kv, pos, vf)
+    torch.cuda.synchronize()
+    err = check_errors(name, out, plain(q, *kv, pos, vf), bf16)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    b, c = q.shape[0], kv[0].shape[-1]
+    pos_t = torch.as_tensor(pos, device="cuda").expand(b).clamp(max=c - 1)[:, None]
+    vf_t = torch.as_tensor(vf, device="cuda").expand(b).clamp(min=0)[:, None]
+    cols = torch.arange(c, device="cuda")
+    outside = ((cols > pos_t) | (cols < vf_t)) & (vf_t <= pos_t)  # (B, C)
+    poisoned = [x.clone() for x in kv]
+    for x in poisoned:
+        x.masked_fill_(outside[:, None, None, :], float("nan") if x.is_floating_point() else 127)
+    if not torch.equal(out, wrapper(q, *poisoned, pos, vf)):
+        raise AssertionError(f"{name}: poisoned columns outside the bounds changed the output")
+    return err
+
+
+def _split_timing(kernel: str, b: int, c: int) -> dict:
+    """Warm and cold device times (tools/torch_sqa_time.py) with the rule's
+    cluster size, and the same for each forced size (the split sweep)."""
+    from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
+
+    torch_sqa_time = sqa_time()
+
+    timing = torch_sqa_time.time_kernel(kernel, b, c)
+    sweep = {}
+    for splits in torch_sqa_time.SWEEP_SPLITS:
+        t = torch_sqa_time.time_kernel(kernel, b, c, splits)
+        sweep[splits] = {"warm_ms": t["warm_ms"], "cold_ms": t["cold_ms"]}
+    log(f"{kernel} {(b, 20, 64, c)} split sweep on {card()} (device ms, warm / cold; the "
+        f"rule takes {si.split_count(c, b * 20)}): " + ", ".join(
+            f"{s}: {t['warm_ms']:.4f} / {t['cold_ms']:.4f}" for s, t in sweep.items()))
+    return {"warm_device_ms": timing["warm_ms"], "cold_device_ms": timing["cold_ms"],
+            "rule_splits": si.split_count(c, b * 20), "split_sweep": sweep}
+
+
 def check_sqa_self(ss) -> dict:
     """K3 vs its plain version: (4,20,64,256) bf16 with per-row bounds, the
     rows of the other paths over a full 448-column cache (1 in the CLI's
     stream, 2 in the two-stream loop, 8 under continuous beam 2 at batch
     4), a ragged (3,20,64,448) with pos at the last column and one row past
-    it (clamped), and fp32 q; timed at (4,20,64,256) over all columns against
-    scaled_dot_product_attention with a boolean mask on transposed views."""
+    it (clamped), and fp32 q; at the edges of the column split (SPLIT_EDGES)
+    at 256 columns and at 1 and 8 rows of 448, bf16 and fp32 q; every case
+    launched twice (same bits) and with the columns outside its bounds
+    poisoned (same bits). Timed at (4,20,64,256) over all columns: CUDA
+    events against the plain version and scaled_dot_product_attention with a
+    boolean mask on transposed views (its event and device time), and the
+    kernel's device time warm and cold with the split sweep."""
     g = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
     cases = [((4, 20, 64, 256), "per-row", torch.bfloat16),
              *(((b, 20, 64, 448), "per-row", torch.bfloat16) for b in (1, 2, 8)),
              ((3, 20, 64, 448), "last-column", torch.bfloat16),
-             ((4, 20, 64, 256), "per-row", torch.float32)]
+             ((4, 20, 64, 256), "per-row", torch.float32),
+             *(((b, 20, 64, c), "edges", qdtype) for b, c in ((4, 256), (1, 448), (8, 448))
+               for qdtype in (torch.bfloat16, torch.float32))]
     for (b, h, d, c), kind, qdtype in cases:
         q = torch.randn(b, h, d, generator=g, device="cuda").to(qdtype)
-        k, v = (torch.randn(b, h, d, c, generator=g, device="cuda").bfloat16()
-                for _ in range(2))
+        kv = tuple(torch.randn(b, h, d, c, generator=g, device="cuda").bfloat16()
+                   for _ in range(2))
         if kind == "per-row":
-            pos, vf = _bounds(b, c, g, True)
+            bounds = [(kind, *_bounds(b, c, g, True))]
+        elif kind == "last-column":
+            bounds = [(kind, torch.tensor([c - 1, 120, c], dtype=torch.int32, device="cuda"),
+                       torch.tensor([0, 5, 2], dtype=torch.int32, device="cuda"))]
         else:
-            pos = torch.tensor([c - 1, 120, c], dtype=torch.int32, device="cuda")
-            vf = torch.tensor([0, 5, 2], dtype=torch.int32, device="cuda")
-        out = ss.sqa_self(q, k, v, pos, vf)
-        torch.cuda.synchronize()
-        worst = max(worst, check_errors(
-            f"sqa_self kernel vs plain {(b, h, d, c)} {kind} q {qdtype}", out,
-            ss.sqa_self_reference(q, k, v, pos, vf), True))
+            bounds = _edge_bounds(b, c)
+        for name, pos, vf in bounds:
+            worst = max(worst, _check_split_kernel(
+                f"sqa_self kernel vs plain {(b, h, d, c)} {name} q {qdtype}", ss.sqa_self,
+                ss.sqa_self_reference, q, kv, pos, vf, True))
+    log("sqa_self: two launches gave the same bits and poisoned columns outside the "
+        "bounds left every output bit-identical")
     b, h, d, c = 4, 20, 64, 256
     q = torch.randn(b, h, d, generator=g, device="cuda").bfloat16()
     k, v = (torch.randn(b, h, d, c, generator=g, device="cuda").bfloat16()
@@ -521,53 +593,64 @@ def check_sqa_self(ss) -> dict:
         lambda: ss.sqa_self_reference(q, k, v, c - 1, 0),
         lambda: ss.sqa_self(q, k, v, c - 1, 0), iters=50)
     mask = torch.ones(b, 1, 1, c, dtype=torch.bool, device="cuda")
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k.transpose(-1, -2), v.transpose(-1, -2), attn_mask=mask),
-        iters=50)
+    library_ms, library_dev_ms = timed_cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(-1, -2), v.transpose(-1, -2), attn_mask=mask))
     dev_ms = device_ms(lambda: ss.sqa_self(q, k, v, c - 1, 0), "Bf16KV")
+    split = _split_timing("sqa_self", b, c)
     lim = bound(2 * b * h * d * c * 2 + 2 * b * h * d * 2, 4 * b * h * d * c, "bf16")
     log(f"sqa_self (4,20,64,256) bf16 on {card()}: kernel {kernel_ms:.4f} ms "
-        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{lim['bound_ms']:.5f} ms (runs: {times})")
+        f"(device {dev_ms:.4f} ms; warm {split['warm_device_ms']:.4f}, cold through the "
+        f"step entry {split['cold_device_ms']:.4f}), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (device {library_dev_ms:.4f} "
+        f"ms), bound {lim['bound_ms']:.5f} ms (runs: {times})")
     return {"name": "sqa_self", "tpu_kernel": "K3", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/sqa_self.py:39",
-            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms, **split,
             "plain_ms": plain_ms, **lim,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "library_device_ms": library_dev_ms}
 
 
 def check_sqa_int8(si) -> dict:
     """K6 vs its plain version at cross geometry (4,20,64,1500), self
     geometry (4,20,64,256) with per-row bounds, the 8 rows of continuous
     beam 2 at batch 4 (cross, and a 448-column self cache with per-row
-    bounds), and with fp32 q; timed at cross geometry. No single PyTorch call attends over int8 K/V with
-    column scales."""
+    bounds), and with fp32 q; at the edges of the column split
+    (SPLIT_EDGES) at 1500 columns and at 1 and 8 rows of 448, bf16 and fp32
+    q; every case launched twice (same bits) and with the columns outside
+    its bounds poisoned (same bits). Timed at cross geometry: CUDA events
+    against the plain version, and the device time warm and cold (through
+    the step entry over 32 layers) with the split sweep. No single PyTorch
+    call attends over int8 K/V with column scales."""
     from openai_whisper_coreml_tpu_torch.models.decoder import quantize_kv_column
 
     g = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     timing = None
-    for (b, h, d, s), per_row, qdtype in (((4, 20, 64, 1500), False, torch.bfloat16),
-                                          ((4, 20, 64, 256), True, torch.bfloat16),
-                                          ((8, 20, 64, 1500), False, torch.bfloat16),
-                                          ((8, 20, 64, 448), True, torch.bfloat16),
-                                          ((4, 20, 64, 1500), False, torch.float32)):
+    cases = [((4, 20, 64, 1500), "scalar", torch.bfloat16),
+             ((4, 20, 64, 256), "per-row", torch.bfloat16),
+             ((8, 20, 64, 1500), "scalar", torch.bfloat16),
+             ((8, 20, 64, 448), "per-row", torch.bfloat16),
+             ((4, 20, 64, 1500), "scalar", torch.float32),
+             *(((b, 20, 64, s), "edges", qdtype) for b, s in ((4, 1500), (1, 448), (8, 448))
+               for qdtype in (torch.bfloat16, torch.float32))]
+    for (b, h, d, s), kind, qdtype in cases:
         q = torch.randn(b, h, d, generator=g, device="cuda").to(qdtype)
         k8, ks = quantize_kv_column(torch.randn(b, h, d, s, generator=g, device="cuda"))
         v8, vs = quantize_kv_column(torch.randn(b, h, d, s, generator=g, device="cuda"))
-        pos, vf = _bounds(b, s, g, per_row)
-        out = si.sqa_int8(q, k8, ks, v8, vs, pos, vf)
-        torch.cuda.synchronize()
+        bounds = (_edge_bounds(b, s) if kind == "edges"
+                  else [(kind, *_bounds(b, s, g, kind == "per-row"))])
         bf16 = qdtype == torch.bfloat16
-        err = check_errors(f"sqa_int8 kernel vs plain {(b, h, d, s)} "
-                           f"{'per-row' if per_row else 'scalar'} q {qdtype}", out,
-                           si.sqa_int8_reference(q, k8, ks, v8, vs, pos, vf), bf16)
-        if bf16:
-            worst = max(worst, err)
-            if (b, s) == (4, 1500):
-                timing = (q, k8, ks, v8, vs)
+        for name, pos, vf in bounds:
+            err = _check_split_kernel(f"sqa_int8 kernel vs plain {(b, h, d, s)} {name} q "
+                                      f"{qdtype}", si.sqa_int8, si.sqa_int8_reference, q,
+                                      (k8, ks, v8, vs), pos, vf, bf16)
+            if bf16:
+                worst = max(worst, err)
+        if bf16 and (b, s, kind) == (4, 1500, "scalar"):
+            timing = (q, k8, ks, v8, vs)
+    log("sqa_int8: two launches gave the same bits and poisoned columns outside the "
+        "bounds left every output bit-identical")
     q, k8, ks, v8, vs = timing
     b, h, d, s = k8.shape
     kernel_ms, plain_ms, times = alternate(
@@ -575,16 +658,18 @@ def check_sqa_int8(si) -> dict:
         lambda: si.sqa_int8(q, k8, ks, v8, vs, s - 1, 0), iters=50)
     dev_ms = device_ms(lambda: si.sqa_int8(q, k8, ks, v8, vs, s - 1, 0),
                        "Int8KV")
+    split = _split_timing("sqa_int8", b, s)
     lim = bound(2 * b * h * d * s + 2 * b * h * s * 4 + 2 * b * h * d * 2,
                 4 * b * h * d * s, "int8")
     log(f"sqa_int8 (4,20,64,1500) bf16 q on {card()}: kernel {kernel_ms:.4f} ms "
-        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"(device {dev_ms:.4f} ms; warm {split['warm_device_ms']:.4f}, cold through the "
+        f"step entry {split['cold_device_ms']:.4f}), plain {plain_ms:.4f} ms, bound "
         f"{lim['bound_ms']:.5f} ms; no single PyTorch call computes it "
         f"(runs: {times})")
     return {"name": "sqa_int8", "tpu_kernel": "K6", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/sqa_int8.py:59",
-            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms, **split,
             "plain_ms": plain_ms, **lim,
             "library_ms": None}
 
@@ -1596,20 +1681,6 @@ def sqa_v3_probe_slice(kernels) -> list:
     return records
 
 
-def host_us_per_call(fn, calls: int) -> float:
-    """Host microseconds per call of `calls` back-to-back launches (no sync
-    between them: the card's queue holds them), best of three."""
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for i in range(calls):
-            fn(i)
-        best = min(best, (time.perf_counter() - t) * 1e6 / calls)
-        torch.cuda.synchronize()
-    return best
-
-
 def host_profile(run, steps: int) -> dict:
     """cProfile of `run` (`steps` decode steps): host ms per step (inflated
     by the profiler's own cost per Python call), and the time and share
@@ -1666,7 +1737,8 @@ def encoder_slice(model, kernels) -> dict:
 
 def profile_step(model, ss, si):
     """5 large-v3 B=4 decode steps at a 224-token horizon (256-column bf16
-    cache, int8 cross-KV, positions 100-104) four ways: the decode kernels
+    cache, int8 cross-KV, positions 100-104: the inputs of
+    tools/torch_sqa_time.py --step, from its step_inputs) four ways: the decode kernels
     through decode_step's per-step entries (K3 + K6), the same kernels
     through their per-call wrappers, self_kernel=False (K6 only) and the
     plain versions in the kernels' place. Prints device events and
@@ -1679,14 +1751,9 @@ def profile_step(model, ss, si):
 
     from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
 
-    cfg = model.cfg
-    b, steps = 4, 5
-    g = torch.Generator(device="cuda").manual_seed(5)
-    feats = torch.randn(b, cfg.n_audio_ctx, cfg.n_audio_state, generator=g,
-                        device="cuda").bfloat16()
-    cross = dec_mod.precompute_cross_kv_int8(model.decoder, feats)
-    cache = dec_mod.init_kv_cache(cfg, b, torch.bfloat16, "cuda", ctx=256)
-    tok = torch.randint(0, cfg.timestamp_begin, (b, 1), generator=g, device="cuda")
+    timing = sqa_time()
+    steps, pos0, host_us_per_call = timing.STEPS, timing.STEP_POS, timing.host_us_per_call
+    tok, cross, cache, q = timing.step_inputs(model)
 
     def per_layer(fn):
         """An entry that calls fn(q (B,H,D), layer l of each stacked tensor,
@@ -1719,7 +1786,7 @@ def profile_step(model, ss, si):
         self_kernel, ctx = modes[mode]
         with ctx():
             for i in range(steps):
-                dec_mod.decode_step(model.decoder, tok, cross, cache, 100 + i,
+                dec_mod.decode_step(model.decoder, tok, cross, cache, pos0 + i,
                                     self_kernel=self_kernel)
 
     wall = {}
@@ -1748,9 +1815,7 @@ def profile_step(model, ss, si):
     log("decode step profile: " + json.dumps(profile_out))
 
     # the wrappers' host cost at the step's shapes: one step's 32 calls each
-    n = cfg.n_text_layer
-    q = torch.randn(b, 1, cfg.n_text_head, cfg.text_head_dim, generator=g,
-                    device="cuda").bfloat16()
+    n = model.cfg.n_text_layer
     k8, ks, v8, vs = cross
     s_cols = k8.shape[-1]
     host = {
@@ -1762,11 +1827,11 @@ def profile_step(model, ss, si):
         "sqa_int8 cross, making the step entry": host_us_per_call(
             lambda l: si.sqa_int8_layers(*cross, s_cols - 1, 0), n),
         "sqa_self, per-call wrapper": host_us_per_call(
-            lambda l: ss.sqa_self(q[:, 0], cache.k[l], cache.v[l], 100, 0), n),
+            lambda l: ss.sqa_self(q[:, 0], cache.k[l], cache.v[l], pos0, 0), n),
         "sqa_self, step entry": host_us_per_call(
-            lambda l, a=ss.sqa_self_layers(cache.k, cache.v, 100, 0): a(q, l), n),
+            lambda l, a=ss.sqa_self_layers(cache.k, cache.v, pos0, 0): a(q, l), n),
         "sqa_self, making the step entry": host_us_per_call(
-            lambda l: ss.sqa_self_layers(cache.k, cache.v, 100, 0), n),
+            lambda l: ss.sqa_self_layers(cache.k, cache.v, pos0, 0), n),
     }
     for name, us in host.items():
         log(f"host time per call, {name}: {us:.2f} us")

@@ -13,6 +13,10 @@ scalars or (B,) per-row bounds (the TPU kernel takes scalars only).
 On a CUDA tensor the wrapper launches the kernel in `csrc/sqa.cu` (one
 kernel with K3, `ops/sqa_self.py`, over another K/V format) or raises; on
 a CPU tensor it runs `sqa_int8_reference`, the same math in PyTorch.
+The kernel splits each row's columns across a thread-block cluster of
+`split_count(cols, batch * heads)` CTAs (`slice_bounds` gives each CTA's columns) and
+combines their shares over distributed shared memory in the same launch;
+`splits` forces another cluster size (the split sweep).
 There is no fallback from the card to the plain version. `decode_step`
 calls the kernel through `sqa_int8_layers`, which checks one step's
 stacked K/V and builds the launch arguments once for all its layers.
@@ -30,7 +34,10 @@ import torch
 from ._build import count_launch, load_library
 
 HEAD_DIM = 64  # the kernel is compiled for D = 64 (every Whisper size)
-MAX_COLS = 12288  # kMaxCols in the kernels: fp32 logits in 48 KB of shared memory
+MAX_COLS = 4096  # kSqaMaxCols in csrc/sqa.cu (K3 and K6)
+MAX_SPLITS = 16  # kMaxSplits: the largest cluster (past 8 is non-portable)
+# the split rule's constants (kGridCtas, kMinSliceCols, kMaxSliceCols)
+GRID_CTAS, MIN_SLICE_COLS, MAX_SLICE_COLS = 320, 56, 384
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 Bound = Union[int, torch.Tensor]
@@ -41,6 +48,31 @@ launches = 0
 
 _ENTRY = {torch.bfloat16: "whisper_sqa_int8_bf16",
           torch.float32: "whisper_sqa_int8_f32"}
+
+
+def split_count(cols: int, rows: int) -> int:
+    """The kernel's split rule (`split_count` in csrc/sqa.cu), CTAs per
+    (row, head) for `rows` = batch x heads: the largest power of two up to 8
+    that keeps the grid within GRID_CTAS CTAs and the slices at
+    MIN_SLICE_COLS columns or more, raised to the smallest power of two
+    (up to MAX_SPLITS) that leaves at most MAX_SLICE_COLS columns a CTA."""
+    s = 1
+    while s < 8 and 2 * s * rows <= GRID_CTAS and 2 * s * MIN_SLICE_COLS <= cols:
+        s *= 2
+    while s < MAX_SPLITS and s * MAX_SLICE_COLS < cols:
+        s *= 2
+    return s
+
+
+def slice_bounds(lo: int, hi: int, vec_cols: int, splits: int) -> list:
+    """Each cluster rank's columns [c0, c1) (`slice_of` in csrc/sqa.cu):
+    the row's [lo, hi] widened to whole vectors of `vec_cols` columns and
+    cut into `splits` contiguous runs of vectors whose lengths differ by
+    one at most. A rank whose run is empty gets c0 == c1."""
+    v0 = lo // vec_cols
+    n = hi // vec_cols + 1 - v0
+    return [((v0 + n * r // splits) * vec_cols, (v0 + n * (r + 1) // splits) * vec_cols)
+            for r in range(splits)]
 
 
 def column_mask(cols: int, pos: Bound, valid_from: Bound,
@@ -74,7 +106,8 @@ class SqaArgs(ctypes.Structure):
     """The launch's scalar arguments, `struct SqaArgs` in `csrc/sqa.cu`:
     per-row bounds as (pointer, element stride, value), strides in elements
     (K/V and scales: one layer's (B, H, D, S) and (B, H, 1, S) slice; K3
-    leaves the scales' at 0), the stream and D^-0.5."""
+    leaves the scales' at 0), the stream, D^-0.5 and the cluster size of
+    K3/K6 (0: `split_count`)."""
 
     _fields_ = ([("pos", ctypes.c_void_p), ("pos_stride", ctypes.c_longlong),
                  ("valid_from", ctypes.c_void_p), ("vf_stride", ctypes.c_longlong)]
@@ -84,18 +117,24 @@ class SqaArgs(ctypes.Structure):
                 + [("stream", ctypes.c_void_p)]
                 + [(n, ctypes.c_int) for n in (
                     "pos_value", "vf_value", "batch", "heads", "cols")]
-                + [("sm_scale", ctypes.c_float)])
+                + [("sm_scale", ctypes.c_float), ("splits", ctypes.c_int)])
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C types of K6's entry points and of the split rule in `lib`."""
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(SqaArgs)] + [ctypes.c_void_p] * 6
+    lib.whisper_sqa_split_count.restype = ctypes.c_int
+    lib.whisper_sqa_split_count.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
 
 
 @functools.cache
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library; sets its C types."""
-    lib = load_library("sqa", "sqa.cu")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(SqaArgs)] + [ctypes.c_void_p] * 6
-    return lib
+    return bind(load_library("sqa", "sqa.cu"))
 
 
 def bound_tensor(x: Bound, batch: int, device: torch.device) -> Bound:
@@ -114,11 +153,14 @@ def bound_tensor(x: Bound, batch: int, device: torch.device) -> Bound:
 
 def launch_args(pos: Bound, valid_from: Bound, q_strides: tuple, o_strides: tuple,
                 k: torch.Tensor, v: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
-                v_scale: Optional[torch.Tensor] = None) -> SqaArgs:
+                v_scale: Optional[torch.Tensor] = None, splits: int = 0) -> SqaArgs:
     """SqaArgs for `bound_tensor` bounds, the (row, head) strides of q and
-    of the output, and one layer's (B, H, D, S) K/V and (B, H, 1, S)
-    scales, on the current stream of K's device."""
+    of the output, one layer's (B, H, D, S) K/V and (B, H, 1, S) scales and
+    a cluster size (0: the rule), on the current stream of K's device."""
+    if not 0 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be 0 (the rule) or 1..{MAX_SPLITS}, got {splits}")
     args = SqaArgs()
+    args.splits = splits
     if isinstance(pos, int):
         args.pos_value = pos
     else:
@@ -149,7 +191,8 @@ def check_dmajor(name: str, x: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name} needs a unit column stride, got {x.stride()}")
 
 
-def _check_int8_kv(device: torch.device, k8, k_scale, v8, v_scale, shape: tuple) -> None:
+def _check_int8_kv(device: torch.device, k8, k_scale, v8, v_scale, shape: tuple,
+                   max_cols: int = MAX_COLS) -> None:
     """int8 K/V of `shape` (..., D, S) and fp32 (..., 1, S) scales on `device`."""
     if k8.dtype != torch.int8 or v8.dtype != torch.int8:
         raise TypeError(f"sqa_int8 takes int8 K/V, got {k8.dtype}, {v8.dtype}")
@@ -158,8 +201,8 @@ def _check_int8_kv(device: torch.device, k8, k_scale, v8, v_scale, shape: tuple)
                         f"{v_scale.dtype}")
     if shape[-2] != HEAD_DIM:
         raise ValueError(f"sqa_int8 needs D={HEAD_DIM}, got K/V {shape}")
-    if not 1 <= shape[-1] <= MAX_COLS:
-        raise ValueError(f"sqa_int8 takes 1..{MAX_COLS} columns, got {shape[-1]}")
+    if not 1 <= shape[-1] <= max_cols:
+        raise ValueError(f"sqa_int8 takes 1..{max_cols} columns, got {shape[-1]}")
     scales = shape[:-2] + (1, shape[-1])
     for name, x, want in (("k8", k8, shape), ("v8", v8, shape),
                           ("k_scale", k_scale, scales), ("v_scale", v_scale, scales)):
@@ -170,12 +213,13 @@ def _check_int8_kv(device: torch.device, k8, k_scale, v8, v_scale, shape: tuple)
 
 def sqa_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
              v8: torch.Tensor, v_scale: torch.Tensor, pos: Bound,
-             valid_from: Bound) -> torch.Tensor:
+             valid_from: Bound, splits: int = 0) -> torch.Tensor:
     """(B,H,D) queries against int8 (B,H,D,S) K/V with (B,H,1,S) scales,
     attending columns valid_from <= c <= pos; returns (B,H,D) in q's dtype.
 
     CUDA tensors launch the Hopper kernel (q bf16 or fp32, D = 64) on the
-    current stream or raise; CPU tensors take `sqa_int8_reference`.
+    current stream, with `splits` CTAs a row (0: `split_count`), or raise;
+    CPU tensors take `sqa_int8_reference`.
     """
     if q.device.type == "cpu":
         return sqa_int8_reference(q, k8, k_scale, v8, v_scale, pos, valid_from)
@@ -193,7 +237,7 @@ def sqa_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     fn = getattr(load_kernel(), _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         args = launch_args(pos, valid_from, q.stride()[:2], out.stride()[:2], k8, v8,
-                           k_scale, v_scale)
+                           k_scale, v_scale, splits)
         err = fn(args, q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
                  v_scale.data_ptr(), out.data_ptr())
     if err != 0:
@@ -206,8 +250,8 @@ LayerAttend = Callable[[torch.Tensor, int], torch.Tensor]
 
 
 def sqa_int8_layers(k8: torch.Tensor, k_scale: torch.Tensor, v8: torch.Tensor,
-                    v_scale: torch.Tensor, pos: Bound,
-                    valid_from: Bound) -> LayerAttend:
+                    v_scale: torch.Tensor, pos: Bound, valid_from: Bound,
+                    splits: int = 0) -> LayerAttend:
     """`attend(q, l)`: `sqa_int8` of one decode step's q (B, 1, H, D)
     against layer l of stacked int8 K/V (L, B, H, D, S) and scales
     (L, B, H, 1, S); returns (B, 1, H, D).
@@ -216,19 +260,20 @@ def sqa_int8_layers(k8: torch.Tensor, k_scale: torch.Tensor, v8: torch.Tensor,
     checked, and the launch arguments and stream fixed, once here; each
     call then checks q's shape and layout and launches with the layer's
     pointers. A q the entry does not take (another shape, a strided view)
-    goes through `sqa_int8`. CPU tensors take the plain version."""
+    goes through `sqa_int8`. CPU tensors take the plain version. `splits`
+    as in `sqa_int8`."""
     batch = k8.shape[1]
     dev = k8.device
     if dev.type != "cuda" or dev.index != torch.cuda.current_device():
         return lambda q, l: sqa_int8(q[:, 0], k8[l], k_scale[l], v8[l], v_scale[l],
-                                     pos, valid_from)[:, None]
+                                     pos, valid_from, splits)[:, None]
     _check_int8_kv(dev, k8, k_scale, v8, v_scale, k8.shape)
     pos_t = bound_tensor(pos, batch, dev)
     vf_t = bound_tensor(valid_from, batch, dev)
     heads, d = k8.shape[2], k8.shape[3]
     q_shape = (batch, 1, heads, d)  # contiguous: row stride H * D, head stride D
     args = launch_args(pos_t, vf_t, (heads * d, d), (heads * d, d), k8[0], v8[0],
-                       k_scale[0], v_scale[0])
+                       k_scale[0], v_scale[0], splits)
     ref = ctypes.byref(args)
     lib = load_kernel()
     fns = {dtype: getattr(lib, name) for dtype, name in _ENTRY.items()}
@@ -242,7 +287,7 @@ def sqa_int8_layers(k8: torch.Tensor, k_scale: torch.Tensor, v8: torch.Tensor,
         fn = fns.get(q.dtype)
         if fn is None or q.shape != q_shape or not q.is_contiguous() or q.device != dev:
             return sqa_int8(q[:, 0], k8[l], k_scale[l], v8[l], v_scale[l],
-                            pos_t, vf_t)[:, None]
+                            pos_t, vf_t, splits)[:, None]
         out = torch.empty_like(q)
         err = fn(ref, q.data_ptr(), *(p + l * step for p, step in tables),
                  out.data_ptr())

@@ -13,6 +13,8 @@ take it on the card.
 On a CUDA tensor the wrapper launches the kernel in `csrc/sqa.cu` (one
 kernel with K6, `ops/sqa_int8.py`, over another K/V format) or raises; on
 a CPU tensor it runs `sqa_self_reference`, the same math in PyTorch.
+The kernel splits each row's columns across a thread-block cluster as
+K6's does (`sqa_int8.split_count`, `splits` to force a size).
 There is no fallback from the card to the plain version. `decode_step`
 calls the kernel through `sqa_self_layers`, which checks one step's
 stacked cache and builds the launch arguments once for all its layers.
@@ -54,10 +56,8 @@ def sqa_self_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhc,bhdc->bhd", p, vb).to(q.dtype)
 
 
-@functools.cache
-def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library; sets its C types."""
-    lib = load_library("sqa", "sqa.cu")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C types of K3's entry points in `lib`."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -65,15 +65,22 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library; sets its C types."""
+    return bind(load_library("sqa", "sqa.cu"))
+
+
 def sqa_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Bound,
-             valid_from: Bound) -> torch.Tensor:
+             valid_from: Bound, splits: int = 0) -> torch.Tensor:
     """(B,H,D) queries against (B,H,D,C) k, v, attending columns
     valid_from <= c <= pos (ints, device scalars or (B,) per-row bounds);
     returns (B,H,D) in q's dtype.
 
     CUDA tensors launch the Hopper kernel (D = 64; q, k, v cast to bf16
     first, as the TPU wrapper does; bf16 or fp32 output) on the current
-    stream or raise; CPU tensors take `sqa_self_reference`.
+    stream, with `splits` CTAs a row (0: the rule), or raise; CPU tensors
+    take `sqa_self_reference`.
     """
     if q.device.type == "cpu":
         return sqa_self_reference(q, k, v, pos, valid_from)
@@ -98,7 +105,8 @@ def sqa_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Bound,
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     fn = getattr(load_kernel(), _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
-        args = launch_args(pos, valid_from, qb.stride()[:2], out.stride()[:2], kb, vb)
+        args = launch_args(pos, valid_from, qb.stride()[:2], out.stride()[:2], kb, vb,
+                           splits=splits)
         err = fn(args, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sqa_self kernel launch failed: CUDA error {err}")
@@ -107,7 +115,7 @@ def sqa_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: Bound,
 
 
 def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
-                    valid_from: Bound) -> LayerAttend:
+                    valid_from: Bound, splits: int = 0) -> LayerAttend:
     """`attend(q, l)`: `sqa_self` of one decode step's q (B, 1, H, D)
     against layer l of a stacked (L, B, H, D, C) cache; returns
     (B, 1, H, D) in q's dtype.
@@ -117,11 +125,12 @@ def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
     here; each call then checks q's shape, dtype and layout and launches
     with the layer's pointers. Anything else (a cache or q in another
     dtype, which `sqa_self` first casts to bf16) goes through `sqa_self`.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. `splits` as in `sqa_self`."""
     dev = k.device
     if (dev.type != "cuda" or dev.index != torch.cuda.current_device()
             or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16):
-        return lambda q, l: sqa_self(q[:, 0], k[l], v[l], pos, valid_from)[:, None]
+        return lambda q, l: sqa_self(q[:, 0], k[l], v[l], pos, valid_from,
+                                     splits)[:, None]
     n_layers, batch, heads, d, c = k.shape
     if d != HEAD_DIM:
         raise ValueError(f"sqa_self needs D={HEAD_DIM}, got a cache {tuple(k.shape)}")
@@ -134,7 +143,8 @@ def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
     pos_t = bound_tensor(pos, batch, dev)
     vf_t = bound_tensor(valid_from, batch, dev)
     q_shape = (batch, 1, heads, d)  # contiguous: row stride H * D, head stride D
-    args = launch_args(pos_t, vf_t, (heads * d, d), (heads * d, d), k[0], v[0])
+    args = launch_args(pos_t, vf_t, (heads * d, d), (heads * d, d), k[0], v[0],
+                       splits=splits)
     ref = ctypes.byref(args)
     fn = load_kernel().whisper_sqa_self_bf16
     tables = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in (k, v)]
@@ -144,7 +154,7 @@ def sqa_self_layers(k: torch.Tensor, v: torch.Tensor, pos: Bound,
             raise IndexError(f"layer {l} of {n_layers}")
         if (q.dtype != torch.bfloat16 or q.shape != q_shape or not q.is_contiguous()
                 or q.device != dev):
-            return sqa_self(q[:, 0], k[l], v[l], pos_t, vf_t)[:, None]
+            return sqa_self(q[:, 0], k[l], v[l], pos_t, vf_t, splits)[:, None]
         out = torch.empty_like(q)
         err = fn(ref, q.data_ptr(), *(p + l * step for p, step in tables), out.data_ptr())
         if err != 0:

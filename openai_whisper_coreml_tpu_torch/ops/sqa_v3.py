@@ -34,6 +34,8 @@ from ._build import count_launch
 from .sqa_int8 import MASK_VALUE, SqaArgs, _check_int8_kv, launch_args
 from .sqa_int8 import load_kernel as _load_sqa
 
+MAX_COLS = 12288  # kMaxCols in csrc/sqa.cu: K2's fp32 logits in 48 KB of shared memory
+
 # Kernel launches made by `sqa_cross_int8` (an int that callers reset;
 # `count_launch` adds to it under a lock).
 launches = 0
@@ -136,7 +138,7 @@ def sqa_cross_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     s_len = s if s_len is None else int(s_len)
     if not 1 <= s_len <= s:
         raise ValueError(f"s_len must be in 1..{s}, got {s_len}")
-    _check_int8_kv(q.device, k8, k_scale, v8, v_scale, (b, h, d, s))
+    _check_int8_kv(q.device, k8, k_scale, v8, v_scale, (b, h, d, s), MAX_COLS)
     if q.stride(-1) != 1:
         raise ValueError(f"sqa_cross_int8 needs a unit-stride q, got strides {q.stride()}")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)

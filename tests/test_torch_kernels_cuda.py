@@ -123,9 +123,47 @@ def _bounds(b, c, g):
     return pos, torch.randint(0, 8, (b,), generator=g, device="cuda", dtype=torch.int32)
 
 
+# (pos, valid_from) of a row at the edges of the kernel's column split:
+# pos inside the first slice (every other CTA of the cluster empty),
+# valid_from inside a late slice, pos past the last column (clamped), no
+# column in bounds (valid_from > pos: uniform weights), a single column
+EDGES = {"pos in the first slice": lambda c: (min(2, c - 1), 0),
+         "valid_from in a late slice": lambda c: (c - 1, c - 1 - c // 10),
+         "pos past the last column": lambda c: (c + 3, 1),
+         "valid_from > pos": lambda c: (c // 2, c // 2 + 1),
+         "one column": lambda c: (c // 3, c // 3)}
+
+
+def _edge_bounds(b, c):
+    """Every row at one edge of EDGES, then the rows cycling through them."""
+    device = dict(dtype=torch.int32, device="cuda")
+    cases = [(torch.tensor([edge(c)[0]] * b, **device),
+              torch.tensor([edge(c)[1]] * b, **device)) for edge in EDGES.values()]
+    mixed = [list(EDGES.values())[i % len(EDGES)](c) for i in range(b)]
+    cases.append((torch.tensor([p for p, _ in mixed], **device),
+                  torch.tensor([vf for _, vf in mixed], **device)))
+    return cases
+
+
+def _sqa_inputs(kernel, b, h, c, dtype, seed):
+    """q (B, H, 64) in dtype and the kernel's K/V over c columns: bf16 K, V
+    (sqa_self) or int8 K, V with fp32 column scales (sqa_int8)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, 64, c, generator=g, device="cuda") for _ in range(2))
+    if kernel == "sqa_self":
+        return q, (k.bfloat16(), v.bfloat16())
+    return q, (*dec_mod.quantize_kv_column(k), *dec_mod.quantize_kv_column(v))
+
+
+_SQA = {"sqa_self": (ss, ss.sqa_self, ss.sqa_self_reference),
+        "sqa_int8": (si, si.sqa_int8, si.sqa_int8_reference)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(4, 20, 256), (3, 20, 448), (2, 2, 7)])
+@pytest.mark.parametrize("shape", [(4, 20, 256), (3, 20, 448), (2, 2, 7), (1, 20, 448),
+                                   (8, 20, 448)])
 def test_sqa_self_matches_plain_version_on_card(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
@@ -134,7 +172,7 @@ def test_sqa_self_matches_plain_version_on_card(shape, dtype):
     q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(b, h, 64, c, generator=g, device="cuda").bfloat16()
             for _ in range(2))
-    for pos, vf in (_bounds(b, c, g), (c - 1, 0)):
+    for pos, vf in (_bounds(b, c, g), (c - 1, 0), *_edge_bounds(b, c)):
         before = ss.launches
         out = ss.sqa_self(q, k, v, pos, vf)
         torch.cuda.synchronize()
@@ -144,7 +182,8 @@ def test_sqa_self_matches_plain_version_on_card(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(4, 20, 1500), (4, 20, 256), (2, 2, 9)])
+@pytest.mark.parametrize("shape", [(4, 20, 1500), (4, 20, 256), (2, 2, 9), (8, 20, 1500),
+                                   (1, 20, 448), (8, 20, 448)])
 def test_sqa_int8_matches_plain_version_on_card(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
@@ -153,12 +192,101 @@ def test_sqa_int8_matches_plain_version_on_card(shape, dtype):
     q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
     k8, ks = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
     v8, vs = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
-    for pos, vf in (_bounds(b, s, g), (s - 1, 0), (torch.tensor(s // 2, device="cuda"), 1)):
+    for pos, vf in (_bounds(b, s, g), (s - 1, 0), (torch.tensor(s // 2, device="cuda"), 1),
+                    *_edge_bounds(b, s)):
         before = si.launches
         out = si.sqa_int8(q, k8, ks, v8, vs, pos, vf)
         torch.cuda.synchronize()
         assert si.launches == before + 1 and out.dtype == dtype
         _close(out, si.sqa_int8_reference(q, k8, ks, v8, vs, pos, vf), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("sqa_int8", (4, 20, 1500), torch.bfloat16), ("sqa_int8", (4, 20, 1500), torch.float32),
+    ("sqa_int8", (4, 20, 256), torch.bfloat16), ("sqa_self", (4, 20, 256), torch.bfloat16),
+    ("sqa_self", (2, 20, 448), torch.float32)])
+def test_forced_split_counts_match_the_plain_version_on_card(kernel, shape, dtype, splits):
+    """Any cluster size the caller forces gives the plain version's result
+    within the tolerances of the rule's, at per-row and edge bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    mod, wrapper, plain = _SQA[kernel]
+    b, h, c = shape
+    q, kv = _sqa_inputs(kernel, b, h, c, dtype, seed=splits)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for pos, vf in (_bounds(b, c, g), (c - 1, 0), *_edge_bounds(b, c)):
+        before = mod.launches
+        out = wrapper(q, *kv, pos, vf, splits=splits)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1
+        _close(out, plain(q, *kv, pos, vf), dtype if kernel == "sqa_int8" else torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,c", [("sqa_int8", 1500), ("sqa_int8", 448),
+                                      ("sqa_self", 256), ("sqa_self", 7)])
+def test_two_launches_give_the_same_bits_on_card(kernel, c):
+    """No atomics: the cluster's combine adds in rank order, so the same
+    inputs give the same output bits on every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    _, wrapper, _ = _SQA[kernel]
+    q, kv = _sqa_inputs(kernel, 8, 20, c, torch.bfloat16, seed=c)
+    pos, vf = _bounds(8, c, torch.Generator(device="cuda").manual_seed(12))
+    first = wrapper(q, *kv, pos, vf)
+    second = wrapper(q, *kv, pos, vf)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,c", [("sqa_int8", 1500), ("sqa_int8", 9),
+                                      ("sqa_self", 448), ("sqa_self", 7)])
+def test_poisoned_columns_outside_the_bounds_change_nothing_on_card(kernel, c):
+    """Columns outside each row's [valid_from, pos] poisoned (NaN in bf16
+    K and V; int8 K and V at 127 with NaN scales) leave the output
+    bit-identical: they never enter the arithmetic, though a vector load
+    may fetch one beside a column in bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    _, wrapper, _ = _SQA[kernel]
+    b = 6
+    q, kv = _sqa_inputs(kernel, b, 20, c, torch.bfloat16, seed=c + 1)
+    pos = torch.tensor([c - 1, c // 2, 2, c + 3, 0, c // 3][:b], dtype=torch.int32,
+                       device="cuda").clamp(max=c + 3)
+    vf = torch.tensor([0, 1, 1, c // 4, 0, c // 3 - 1][:b], dtype=torch.int32,
+                      device="cuda").clamp(min=0)
+    clean = wrapper(q, *kv, pos, vf)
+    cols = torch.arange(c, device="cuda")
+    outside = (cols > pos[:, None]) | (cols < vf[:, None])  # (B, C)
+    poisoned = [x.clone() for x in kv]
+    for x in poisoned:
+        fill = float("nan") if x.is_floating_point() else 127
+        x.masked_fill_(outside[:, None, None, :], fill)
+    dirty = wrapper(q, *poisoned, pos, vf)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all() and torch.equal(clean, dirty)
+
+
+@pytest.mark.cuda
+def test_split_rule_has_one_mirror_on_card():
+    """The C split rule and its Python mirror agree at every column count
+    the kernel takes; the kernel refuses more columns or a larger cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    lib = si.load_kernel()
+    for rows in (1, 20, 80, 160, 480, 1280):
+        for cols in range(1, si.MAX_COLS + 1):
+            assert lib.whisper_sqa_split_count(cols, rows) == si.split_count(cols, rows)
+    q, kv = _sqa_inputs("sqa_int8", 1, 2, si.MAX_COLS + 1, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match=f"1..{si.MAX_COLS} columns"):
+        si.sqa_int8(q, *kv, 7, 0)
+    with pytest.raises(ValueError, match=f"1..{si.MAX_COLS} columns"):
+        ss.sqa_self(q, *(torch.zeros(1, 2, 64, si.MAX_COLS + 1, device="cuda"),) * 2, 7, 0)
+    with pytest.raises(ValueError, match="splits"):
+        si.sqa_int8(q, *(x[..., :64] for x in kv), 7, 0, splits=si.MAX_SPLITS + 1)
 
 
 @pytest.mark.cuda
