@@ -16,8 +16,11 @@ Phases (each raises, so the script exits non-zero, on failure):
        scaled_dot_product_attention (its CUDA-event time, and its device
        time summed over the kernels it launches), with the kernel's
        achieved TFLOP/s;
-       K4 log-mel at (4, 480 000) x 128, (3, 112 000) x 80 and a one-hour
-       bucket (1, 61 920 000) x 128, with both's peak device memory;
+       K4 log-mel on noise at (4, 480 000) x 128, (3, 112 000) x 80 and a
+       one-hour bucket (1, 61 920 000) x 128, with both's peak device
+       memory, also against an fp64 oracle (torch.fft.rfft in fp64); on 30
+       s of a pure tone, silence and speech-like audio against that oracle
+       after the epilogue, and silence exactly -10 before it;
        K3 decode self-attention at (4,20,64,256) with per-row bounds, at
        the 1, 2 and 8 rows of the streaming and beam paths over 448
        columns, and a ragged (3,20,64,448) with pos at (and past) the last
@@ -35,9 +38,12 @@ Phases (each raises, so the script exits non-zero, on failure):
        layers) and the split sweep (tools/torch_sqa_time.py), and K3 beside
        scaled_dot_product_attention's device time;
        K2 int8 x int8 cross-attention at (4,20,64,1536) with s_len=1500,
-       bf16 and fp32 q, both A.V modes, the padding poisoned (output
-       bit-identical), against JAX's inline-dequant oracle too, timed
-       beside K6 on the same K/V;
+       bf16 and fp32 q, both A.V modes, the rule's and each forced split
+       count, launched twice (the same bits) and with the padding poisoned
+       (output bit-identical), its int8 codes the plain version's, against
+       JAX's inline-dequant oracle too, and at its 12288-column limit; its
+       device times warm and cold with the split sweep, beside K6 on the
+       same K/V;
   4. fp32 parity on one tiny model (full 1500-position audio context, head
      dim 64), CPU against card: decode with bf16 and with int8 caches (K6
      on the card, inline dequantisation on the CPU), transcribe of 50 s,
@@ -121,6 +127,9 @@ import torch.nn.functional as F
 
 BF16_MAX_ABS, BF16_MEAN_ABS, FP32_MAX_ABS = 1e-2, 1e-3, 2e-5
 MEL_MAX_ABS = 1e-4
+# K4's unclamped log-mel on noise against the fp64 oracle: fixed limits set
+# from the kernel's readings on the one-hour bucket, with room on both sides
+MEL_FP64_MAX_ABS, MEL_FP64_MEAN_ABS = 3e-4, 2e-7
 SR = 16_000
 # published H100 SXM peaks (dense): HBM bytes/s and operations/s by type
 HBM_BYTES_S = 3.35e12
@@ -408,10 +417,10 @@ def peak_bytes(fn) -> int:
 def mel_ops_per_frame(n_mels: int, dense_dft: bool) -> float:
     """fp32 operations of one log-mel frame: the Hann window, a real
     transform of N_FFT samples, the power of each bin, the mel product over
-    the filterbank's non-zero entries only, and the log. With dense_dft the
-    transform is the (N_FFT x bins) cos and sin products the kernel computes
-    (window folded in), as the TPU kernel does; without, a real FFT at the
-    usual 2.5 N log2 N, the least the function needs."""
+    the filterbank's non-zero entries only, and the log. Without dense_dft
+    the transform is a real FFT at the usual 2.5 N log2 N, the least the
+    function needs (the kernel computes an FFT); with dense_dft it is the
+    TPU kernel's work, the (N_FFT x bins) cos and sin products."""
     from openai_whisper_coreml_tpu_torch.audio import mel_filters
     from openai_whisper_coreml_tpu_torch.config import N_FFT
 
@@ -424,26 +433,72 @@ def mel_ops_per_frame(n_mels: int, dense_dft: bool) -> float:
     return transform + 3 * n_bins + mel + n_mels
 
 
+def mel_oracle(padded: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The unclamped log10 mel of reflect-padded audio in fp64, from
+    torch.fft.rfft (a library FFT, no kernel of the port), 50 000 frames at
+    a time: (B, 160 T + 400) -> (B, T, n_mels) float64."""
+    from openai_whisper_coreml_tpu_torch.audio import mel_filters
+
+    n_frames = (padded.shape[-1] - 400) // 160
+    window = (1 - torch.cos(2 * np.pi * torch.arange(400, device=padded.device,
+                                                     dtype=torch.float64) / 400)) / 2
+    fb = torch.from_numpy(mel_filters(n_mels).T).to(padded.device, torch.float64)
+    chunks = []
+    for t0 in range(0, n_frames, 50_000):
+        frames = padded.double().unfold(-1, 400, 160)[:, t0:min(n_frames, t0 + 50_000)]
+        power = torch.fft.rfft(frames * window).abs() ** 2
+        chunks.append(torch.log10(torch.clamp(power @ fb, min=1e-10)))
+    return torch.cat(chunks, dim=1)
+
+
 def check_mel(mk) -> dict:
-    """K4 vs its plain version on the same padded audio; the JSON record
-    carries the times at (4, 480 000) x 128. No single PyTorch call
-    computes the log-mel (STFT, power, filterbank and log are several)."""
+    """K4 on noise: against its plain version on the same padded audio
+    (unclamped output, MEL_MAX_ABS) at (4, 480 000) x 128 and (3, 112 000)
+    x 80; on every noise input, the one-hour bucket (1, 61 920 000) x 128
+    too, against the fp64 oracle: unclamped within MEL_FP64_MAX_ABS and
+    MEL_FP64_MEAN_ABS, and within 1e-3 after the epilogue (over the
+    bucket's 49.5 M values the plain version's dense fp32 DFT is itself
+    farther than MEL_MAX_ABS from fp64 where a one- or two-bin filter
+    catches almost no energy, so no transform closer to fp64 can be within
+    MEL_MAX_ABS of it there). On a pure tone, silence and speech-like audio,
+    whose bins without real energy hold fp32 rounding noise in any
+    transform, the frontend's gate alone: 1e-3 against the fp64 oracle
+    after the epilogue, and silence exactly -10 in every bin before it. The
+    JSON record carries the times at (4, 480 000) x 128 and the one-hour
+    bucket's. No single PyTorch call computes the log-mel (STFT, power,
+    filterbank and log are several)."""
+    from openai_whisper_coreml_tpu_torch.audio import log_mel_spectrogram
+
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
+    worst = worst_oracle = 0.0
     record = None
     for b, n, n_mels in ((4, 480_000, 128), (3, 16_000 * 7, 80),
                          (1, 61_920_000, 128)):
+        hour = b * n > 10 ** 7
         x = torch.randn(b, n, generator=g, device="cuda") * 0.1
         padded = F.pad(x[:, None], (200, 200), mode="reflect")[:, 0]
         out = mk.log_mel_kernel(padded, n_mels)
         torch.cuda.synchronize()
-        err = (out - mk.log_mel_kernel_reference(padded, n_mels)).abs()
+        plain = mk.log_mel_kernel_reference(padded, n_mels)
+        truth = mel_oracle(padded, n_mels)
+        err = (out - plain).abs()
         max_abs, mean_abs = err.max().item(), err.mean().item()
-        log(f"mel kernel vs plain ({b}, {n}) x {n_mels}: max_abs {max_abs:.3e} "
-            f"mean_abs {mean_abs:.3e}")
-        if not (max_abs <= MEL_MAX_ABS and torch.isfinite(out).all()):
+        to_truth = (out.double() - truth).abs()
+        fp64_max, fp64_mean = to_truth.max().item(), to_truth.mean().item()
+        plain_to_truth = (plain.double() - truth).abs().max().item()
+        post = (mk.epilogue(out).double() - mk.epilogue(truth)).abs().max().item()
+        log(f"mel kernel ({b}, {n}) x {n_mels}: vs plain max_abs {max_abs:.3e} mean_abs "
+            f"{mean_abs:.3e}{' (not gated)' if hour else ''}; vs fp64 max_abs "
+            f"{fp64_max:.3e} (<= {MEL_FP64_MAX_ABS}) mean_abs {fp64_mean:.3e} (<= "
+            f"{MEL_FP64_MEAN_ABS}) (plain vs fp64 max_abs {plain_to_truth:.3e}), after "
+            f"the epilogue {post:.3e}")
+        if not (torch.isfinite(out).all() and (hour or max_abs <= MEL_MAX_ABS)
+                and fp64_max <= MEL_FP64_MAX_ABS and fp64_mean <= MEL_FP64_MEAN_ABS
+                and post <= 1e-3):
             raise AssertionError(f"mel kernel disagrees at ({b}, {n}) x {n_mels}")
         worst = max(worst, max_abs)
+        worst_oracle = max(worst_oracle, post)
+        del plain, truth, err, to_truth
         if n_mels == 80:
             continue
         kernel_ms, plain_ms, times = alternate(
@@ -451,29 +506,54 @@ def check_mel(mk) -> dict:
             lambda: mk.log_mel_kernel(padded, n_mels), iters=10)
         dev_ms = device_ms(lambda: mk.log_mel_kernel(padded, n_mels), "log_mel_kernel",
                            iters=10)
-        log(f"mel ({b}, {n}) x {n_mels} on {card()}: kernel {kernel_ms:.4f} ms "
-            f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms (runs: {times})")
         frames = out.shape[0] * out.shape[1]
         nbytes = padded.numel() * 4 + out.numel() * 4
         lim = bound(nbytes, frames * mel_ops_per_frame(n_mels, dense_dft=False), "fp32")
         dense = bound(nbytes, frames * mel_ops_per_frame(n_mels, dense_dft=True), "fp32")
-        log(f"mel ({b}, {n}) x {n_mels} bound {lim['bound_ms']:.4f} ms "
-            f"({lim['bound_by']}; the function's minimum, a real FFT per frame); "
-            f"{dense['bound_ms']:.4f} ms ({dense['bound_by']}) for the dense DFT "
-            f"the kernel computes, as the TPU kernel does")
+        log(f"mel ({b}, {n}) x {n_mels} on {card()}: kernel {kernel_ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms (runs: {times}); bound "
+            f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}; the function's minimum, a real "
+            f"FFT per frame, as the kernel computes); the TPU kernel's dense DFT would be "
+            f"bound at {dense['bound_ms']:.4f} ms ({dense['bound_by']})")
         if record is None:
             record = {"name": "log_mel", "tpu_kernel": "K4", "route": "cuda",
                       "source": "openai_whisper_coreml_tpu_torch/csrc/mel.cu",
                       "replaces": "openai_whisper_coreml_tpu/ops/mel_kernel.py:51",
                       "ms": kernel_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                      **lim, "dense_dft_bound_ms": dense["bound_ms"],
+                      **lim, "tpu_dense_dft_bound_ms": dense["bound_ms"],
                       "library_ms": None}
         else:
             kernel_peak = peak_bytes(lambda: mk.log_mel_kernel(padded, n_mels))
             plain_peak = peak_bytes(lambda: mk.log_mel_kernel_reference(padded, n_mels))
             log(f"mel one-hour bucket peak device memory beyond its input: "
                 f"kernel {kernel_peak} B, plain {plain_peak} B")
-    record["max_abs_err"] = worst
+            record.update(hour_bucket_ms=kernel_ms, hour_bucket_device_ms=dev_ms,
+                          hour_bucket_bound_ms=lim["bound_ms"],
+                          hour_bucket_peak_bytes=kernel_peak)
+        del x, padded, out
+        torch.cuda.empty_cache()
+    # audio without energy in most bins: the post-epilogue fp64 gate
+    seconds = 30
+    t = torch.arange(seconds * SR, device="cuda", dtype=torch.float64) / SR
+    signals = {"tone": (0.5 * torch.sin(2 * np.pi * 440 * t)).float(),
+               "silence": torch.zeros(seconds * SR, device="cuda"),
+               "speechy": torch.from_numpy(speechy(seconds, 2)).cuda()}
+    for n_mels in (80, 128):
+        for name, x in signals.items():
+            before = mk.launches
+            mel = log_mel_spectrogram(x[None], n_mels)
+            torch.cuda.synchronize()
+            padded = F.pad(x[None, None], (200, 200), mode="reflect")[:, 0]
+            err = (mel.double() - mk.epilogue(mel_oracle(padded, n_mels))).abs().max().item()
+            log(f"mel kernel vs the fp64 oracle after the epilogue, {name} {seconds} s x "
+                f"{n_mels}: max_abs {err:.3e} (<= 1e-3)")
+            if mk.launches != before + 1 or not err <= 1e-3:
+                raise AssertionError(f"mel kernel fails the fp64 gate on {name}")
+            worst_oracle = max(worst_oracle, err)
+            if name == "silence" and not (mk.log_mel_kernel(padded, n_mels) == -10.0).all():
+                raise AssertionError("mel kernel: silence is not -10 before the epilogue")
+    log("mel kernel: silence gives exactly -10 in every bin before the epilogue")
+    record.update(max_abs_err=worst, oracle_max_abs_err=worst_oracle)
     return record
 
 
@@ -529,6 +609,19 @@ def _check_split_kernel(name, wrapper, plain, q, kv, pos, vf, bf16: bool) -> flo
     return err
 
 
+def _expect_refusal(call, what: str) -> None:
+    """`call` must raise the wrappers' launch error for cudaErrorInvalidValue
+    (the C entry refuses the shape and launches nothing); anything else,
+    or no error, fails."""
+    try:
+        call()
+    except RuntimeError as e:
+        if "CUDA error 1" not in str(e):
+            raise
+        return
+    raise AssertionError(f"{what}: launched where it must be refused")
+
+
 def _split_timing(kernel: str, b: int, c: int) -> dict:
     """Warm and cold device times (tools/torch_sqa_time.py) with the rule's
     cluster size, and the same for each forced size (the split sweep)."""
@@ -539,11 +632,18 @@ def _split_timing(kernel: str, b: int, c: int) -> dict:
     timing = torch_sqa_time.time_kernel(kernel, b, c)
     sweep = {}
     for splits in torch_sqa_time.SWEEP_SPLITS:
+        if (kernel, splits) == ("sqa_v3", 1):
+            # one CTA cannot hold a 1536-column row's K and V: refused before launch
+            _expect_refusal(lambda: torch_sqa_time.time_kernel(kernel, b, c, splits),
+                            f"{kernel} {(b, 20, 64, c)} forced to one CTA")
+            sweep[splits] = None
+            continue
         t = torch_sqa_time.time_kernel(kernel, b, c, splits)
         sweep[splits] = {"warm_ms": t["warm_ms"], "cold_ms": t["cold_ms"]}
     log(f"{kernel} {(b, 20, 64, c)} split sweep on {card()} (device ms, warm / cold; the "
         f"rule takes {si.split_count(c, b * 20)}): " + ", ".join(
-            f"{s}: {t['warm_ms']:.4f} / {t['cold_ms']:.4f}" for s, t in sweep.items()))
+            f"{s}: {t['warm_ms']:.4f} / {t['cold_ms']:.4f}" if t else f"{s}: does not fit"
+            for s, t in sweep.items()))
     return {"warm_device_ms": timing["warm_ms"], "cold_device_ms": timing["cold_ms"],
             "rule_splits": si.split_count(c, b * 20), "split_sweep": sweep}
 
@@ -676,12 +776,19 @@ def check_sqa_int8(si) -> dict:
 
 def check_sqa_v3(sv, si) -> dict:
     """K2 vs its plain version at (4,20,64,1536) with s_len=1500, bf16 and
-    fp32 q, both A.V modes; the lane padding poisoned with 127 and 1e6
-    scales must leave the output bit-identical; against JAX's inline-dequant
-    oracle at JAX's tolerances (max 0.012 / rms 0.004 with int8 A.V, 0.004 /
-    0.0013 with bf16; fp32 q, whose output is not rounded to bf16). Timed
-    (int8 and bf16 A.V, bf16 q) beside K6 over the same int8 K/V: no single
-    PyTorch call computes K2."""
+    fp32 q, both A.V modes, with the rule's split count and each forced
+    count (2, 4, 8 and 16; one CTA cannot hold a 1536-column row's K and V,
+    so a forced 1 must raise): the lane padding poisoned with 127 and 1e6
+    scales must leave the output bit-identical, and a second launch give
+    the same bits; with int8 A.V and fp32 q the codes, wmax and integer
+    sums must be the plain version's (out / plain one constant a row, to
+    within three fp32 roundings); against JAX's inline-dequant oracle at
+    JAX's tolerances (max 0.012 / rms 0.004 with int8 A.V, 0.004 / 0.0013
+    with bf16; fp32 q, whose output is not rounded to bf16); and at its
+    column limit, (1,4,64,12288). Timed (int8 and bf16 A.V, bf16 q) beside
+    K6 over the same int8 K/V, warm and cold
+    (tools/torch_sqa_time.py) with the split sweep: no single PyTorch call
+    computes K2."""
     from openai_whisper_coreml_tpu_torch.models.decoder import quantize_kv_column
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -697,26 +804,58 @@ def check_sqa_v3(sv, si) -> dict:
     for qdtype in (torch.bfloat16, torch.float32):
         q = q32.to(qdtype)
         for av in (True, False):
-            out = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av)
-            out_poisoned = sv.sqa_cross_int8(q, *poisoned, s_len=s_len, av_int8=av)
-            torch.cuda.synchronize()
-            plain = sv.sqa_cross_int8_reference(q, k8, ks, v8, vs, s_len=s_len,
-                                                av_int8=av)
-            worst = max(worst, check_errors(
-                f"sqa_v3 kernel vs plain {(b, h, d, s)} s_len {s_len} q {qdtype} "
-                f"av_int8={av}", out, plain, qdtype == torch.bfloat16))
-            if not torch.equal(out, out_poisoned):
-                raise AssertionError(f"sqa_v3 q {qdtype} av_int8={av}: the poisoned "
-                                     f"lane padding changed the output")
+            plain = sv.sqa_cross_int8_reference(q, k8, ks, v8, vs, s_len=s_len, av_int8=av)
+            for splits in (0, 1, 2, 4, 8, 16):
+                tag = (f"sqa_v3 kernel vs plain {(b, h, d, s)} s_len {s_len} q {qdtype} "
+                       f"av_int8={av} splits={splits or 'rule'}")
+                if splits == 1:
+                    before = sv.launches
+                    _expect_refusal(lambda: sv.sqa_cross_int8(
+                        q, k8, ks, v8, vs, s_len=s_len, av_int8=av, splits=1), tag)
+                    if sv.launches != before:
+                        raise AssertionError(f"{tag}: a refused launch was counted")
+                    continue
+                out = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av,
+                                        splits=splits)
+                again = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av,
+                                          splits=splits)
+                out_poisoned = sv.sqa_cross_int8(q, *poisoned, s_len=s_len, av_int8=av,
+                                                 splits=splits)
+                torch.cuda.synchronize()
+                worst = max(worst, check_errors(tag, out, plain, qdtype == torch.bfloat16))
+                if not (torch.equal(out, again) and torch.equal(out, out_poisoned)):
+                    raise AssertionError(f"{tag}: a second launch or the poisoned lane "
+                                         f"padding changed the output")
+                if av and qdtype == torch.float32:
+                    nonzero = plain != 0
+                    ratio = torch.where(nonzero, out / torch.where(nonzero, plain, 1.0),
+                                        float("nan"))
+                    row = ratio.nanmedian(dim=-1, keepdim=True).values
+                    spread = ((ratio - row).abs() / row).nan_to_num(0.0).max().item()
+                    if not (spread <= 4e-7 and torch.equal(out != 0, nonzero)):
+                        raise AssertionError(f"{tag}: the int8 codes are not the plain "
+                                             f"version's (ratio spread {spread:.3e})")
             if qdtype == torch.float32:
-                err = out - oracle
+                err = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av) - oracle
                 max_err, rms = err.abs().max().item(), err.square().mean().sqrt().item()
                 tol = 0.012 if av else 0.004
                 log(f"sqa_v3 vs the inline-dequant oracle av_int8={av}: max "
                     f"{max_err:.3e} (< {tol}), rms {rms:.3e} (< {tol / 3:.4f})")
                 if not (max_err < tol and rms < tol / 3):
                     raise AssertionError("sqa_v3 disagrees with the inline-dequant oracle")
-    log("sqa_v3: the poisoned padding left every output bit-identical")
+    log("sqa_v3: every split count gave the same bits twice, the poisoned padding left "
+        "every output bit-identical, and the int8 codes are the plain version's; a forced "
+        "single CTA at 1536 columns raised")
+    q_lim, *kv_lim = (torch.randn(1, 4, d, generator=g, device="cuda"),
+                      *quantize_kv_column(torch.randn(1, 4, d, sv.MAX_COLS, generator=g,
+                                                      device="cuda")),
+                      *quantize_kv_column(torch.randn(1, 4, d, sv.MAX_COLS, generator=g,
+                                                      device="cuda")))
+    for av in (True, False):
+        check_errors(f"sqa_v3 kernel vs plain (1, 4, 64, {sv.MAX_COLS}) av_int8={av}",
+                     sv.sqa_cross_int8(q_lim, *kv_lim, av_int8=av),
+                     sv.sqa_cross_int8_reference(q_lim, *kv_lim, av_int8=av), False)
+    del q_lim, kv_lim
     q = q32.bfloat16()
 
     def k2(av=True):
@@ -733,19 +872,26 @@ def check_sqa_v3(sv, si) -> dict:
     bf16_dev_ms = device_ms(lambda: k2(False), "sqa_v3_kernel")
     k6_ms = cuda_ms(k6, iters=50)
     k6_dev_ms = device_ms(k6, "Int8KV")
+    split = _split_timing("sqa_v3", b, s)
+    bf16_split = sqa_time().time_kernel("sqa_v3", b, s, av_int8=False)
     lim = bound(2 * b * h * d * s_len + 2 * b * h * s_len * 4 + 2 * b * h * d * 2,
                 4 * b * h * d * s_len, "int8")
     log(f"sqa_v3 (4,20,64,1500 of 1536) bf16 q on {card()}: int8 A.V kernel "
-        f"{kernel_ms:.4f} ms (device {dev_ms:.4f} ms), bf16 A.V {bf16_ms:.4f} ms "
-        f"(device {bf16_dev_ms:.4f} ms), plain {plain_ms:.4f} ms; K6 on the same "
-        f"K/V {k6_ms:.4f} ms (device {k6_dev_ms:.4f} ms); bound "
-        f"{lim['bound_ms']:.5f} ms; no single PyTorch call computes it (runs: {times})")
+        f"{kernel_ms:.4f} ms (device {dev_ms:.4f} ms; warm {split['warm_device_ms']:.4f}, "
+        f"cold {split['cold_device_ms']:.4f}), bf16 A.V {bf16_ms:.4f} ms (device "
+        f"{bf16_dev_ms:.4f} ms; warm {bf16_split['warm_ms']:.4f}, cold "
+        f"{bf16_split['cold_ms']:.4f}), plain {plain_ms:.4f} ms; K6 on the same K/V "
+        f"{k6_ms:.4f} ms (device {k6_dev_ms:.4f} ms); bound {lim['bound_ms']:.5f} ms "
+        f"({100 * lim['bound_ms'] / split['cold_device_ms']:.0f}% of the cold time); no "
+        f"single PyTorch call computes it (runs: {times})")
     return {"name": "sqa_v3", "tpu_kernel": "K2", "route": "cuda",
             "source": "openai_whisper_coreml_tpu_torch/csrc/sqa.cu",
             "replaces": "openai_whisper_coreml_tpu/ops/sqa_v3.py:52",
-            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms,
+            "max_abs_err": worst, "ms": kernel_ms, "device_ms": dev_ms, **split,
             "plain_ms": plain_ms, **lim, "library_ms": None,
             "av_bf16_ms": bf16_ms, "av_bf16_device_ms": bf16_dev_ms,
+            "av_bf16_warm_device_ms": bf16_split["warm_ms"],
+            "av_bf16_cold_device_ms": bf16_split["cold_ms"],
             "k6_same_kv_ms": k6_ms, "k6_same_kv_device_ms": k6_dev_ms}
 
 

@@ -1,7 +1,7 @@
 // Single-query decode attention for Hopper (sm_90a), D = 64: one kernel
-// over two K/V formats, and beside it the int8 x int8 cross-attention
-// kernel (K2, at the end of this file), which shares the launch arguments,
-// the bounds and the block reductions.
+// body over two K/V formats and three modes, launched as two kernels
+// (sqa_kernel for K3 and K6, sqa_v3_kernel for K2) that share the launch
+// arguments, the column split, the staging and the exchanges.
 //
 // Replaces three TPU kernels:
 //   K3 openai_whisper_coreml_tpu/ops/sqa_self.py:_sqa_self_kernel, over the
@@ -9,7 +9,8 @@
 //   K6 openai_whisper_coreml_tpu/ops/sqa_int8.py:_sqa_kernel, over int8 K/V
 //      (B, H, D, S) with fp32 (B, H, 1, S) column scales: int8 cross-KV
 //      (S = 1500 audio positions) and the int8 self-attention cache;
-//   K2 openai_whisper_coreml_tpu/ops/sqa_v3.py:_sqa3_kernel (see below).
+//   K2 openai_whisper_coreml_tpu/ops/sqa_v3.py:_sqa3_kernel, the same int8
+//      K/V with an int8 query (see "K2" below).
 // One decode step's query per (row, head) attends the slice in its stored
 // d-major layout, columns valid_from <= c <= pos with per-row bounds:
 //
@@ -21,6 +22,23 @@
 //          to bf16 before P.V)
 //   out  = w . v                                 fp32, written as OutT
 //
+// K2 computes what the TPU kernel computes, in its order, with the query's
+// row quantisation and the scale fold that JAX runs in XLA outside the
+// kernel fused in:
+//
+//   qs    = max(max_d |q| / 127, 1e-12)              per (row, head)
+//   q8    = clip(rint(q / qs), +-127)                round half to even
+//   s[c]  = (float(q8 . k8[:, c]) * (k_scale[c] * qs)) * D^-0.5
+//   p     = exp(s - max s), l = sum p, pv = p * v_scale[c]
+//   av_int8:  wmax = max(max pv, 1e-20); w8 = clip(rint(pv * (127 / wmax)))
+//             out = (float(int32 w8 . v8[d, :]) * (wmax / 127)) / l
+//   else:     out = (sum bf16(pv) * v8[d, :], fp32) / l
+//
+// The Q.K dot is at most 64 * 127^2 < 2^24, so the fp32 products of K6's
+// logit loop give the int32 dot's bits in any order. The int8 A.V sum
+// (1500 * 127^2 > 2^24) is not exact in fp32: it runs on dp4a in int32 and
+// the CTAs' 64-vectors are added as int32, exact in any order.
+//
 // K and V are never dequantised in memory: int8 values are converted in
 // registers. The TPU K6's packed (B, H*D, S) layout and block-diagonal head
 // packing work around Mosaic's int8 relayout limits and are not needed here;
@@ -29,12 +47,14 @@
 // column: a finished continuous-batching row sits at pos == total_len,
 // which may equal the cache length. Masked columns never enter the
 // arithmetic: their exp is an exact 0 in fp32 next to any real logit, so
-// leaving them out equals the plain versions. A row with no column in its
+// leaving them out equals the plain versions (K2: columns past s_len, the
+// 1500 -> 1536 lane padding, are never read). A row with no column in its
 // bounds gets the plain versions' uniform weights over all columns.
 //
 // What bounds it on the H100: bytes. At large-v3 B=4, K6 over the cross K/V
 // reads 15.36 MB of int8 and 0.96 MB of scales (>= 4.9 us at 3.35 TB/s),
 // K3 over C=256 reads 5.24 MB (>= 1.6 us); each does ~4 operations per byte.
+// K2 reads what K6 reads.
 //
 // The design, one launch a call: the grid is (splits, heads, batch) with
 // thread-block clusters of (splits, 1, 1). The CTAs of a cluster split the
@@ -48,27 +68,33 @@
 // only: each copy takes the 16-byte granules that hold the row's columns
 // and the arithmetic starts at the row's offset in its first granule (rows
 // off 4-byte boundaries take plain loads). Logits: warp w multiplies d rows
-// 16w..16w+15 (q in registers) with lanes over the slice's words, int8
-// turned into fp32 by a byte permute and one add. The combine goes over
-// distributed shared memory, in the same launch: (1) each warp's (max, sum)
-// pair is written into every CTA of the cluster; after cluster.sync() every
-// warp folds the row's pairs in one fixed order, m = max m_i and
-// l = sum l_i exp(m_i - m) (an empty slice's pair is (-inf, 0) and adds
-// 0), so the weights are normalised before P.V, as K3's bf16 rounding of P
-// needs; (2) P.V over the slice, a thread per (d row, half of the
-// columns), into rank 0's shared memory; after a second cluster.sync()
-// rank 0 adds the CTAs' 64-vectors in rank order and writes the output.
-// No atomics: the same inputs give the same bits. The split count is a
-// rule (split_count below, from the sweep) or a count the caller passes in
-// SqaArgs. What holds it above the bound on the H100 (PERF.md): the chain
-// of dependent steps a CTA runs after its loads (products, softmax, two
-// cluster barriers), not the bytes.
+// 16w..16w+15 (q in registers; K2: every CTA quantises the same 64 values
+// to the same q8, so the prologue needs no exchange) with lanes over the
+// slice's words, int8 turned into fp32 by a byte permute and one add. The
+// combine goes over distributed shared memory, in the same launch: (1) each
+// warp's (max, sum) pair is written into every CTA of the cluster; after
+// cluster.sync() every warp folds the row's pairs in one fixed order,
+// m = max m_i and l = sum l_i exp(m_i - m) (an empty slice's pair is
+// (-inf, 0) and adds 0), so the weights are normalised before P.V, as K3's
+// bf16 rounding of P needs (K2 divides by l at the end, as its plain
+// version does); (K2 with int8 A.V) each warp's largest weight, taken with
+// the row's m, is written into every CTA and the row's wmax is their max
+// after one more cluster barrier: a max does not depend on order, so wmax
+// and every code are the plain version's; (2) P.V over the slice, a thread
+// per (d row, half of the columns), into rank 0's shared memory; after a
+// second cluster.sync() rank 0 adds the CTAs' 64-vectors in rank order and
+// writes the output. No atomics: the same inputs give the same bits. The
+// split count is a rule (split_count below, from the sweep) or a count the
+// caller passes in SqaArgs. What holds it above the bound on the H100
+// (PERF.md): the chain of dependent steps a CTA runs after its loads
+// (products, softmax, the cluster barriers), not the bytes.
 //
 // Bounds arrive as (pointer, element stride, value): a null pointer means
 // the same value for every row, a stride of 0 one device scalar for all.
 // Every entry point takes its scalar arguments as one SqaArgs, launches on
 // its stream and returns cudaGetLastError() (or cudaErrorInvalidValue
-// before any launch).
+// before any launch: a shape past the column limit, a split count past the
+// largest cluster, or a slice larger than shared memory holds).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -81,8 +107,8 @@
 // wrappers) or once per decode step (the layer entries, which then pass
 // only the layer's pointers). Strides in elements; the K/V strides are those
 // of one layer's (B, H, D, S) slice, the scales' of its (B, H, 1, S) slice
-// (unused by K3). splits: the cluster size of K3/K6, 0 for the rule (K2
-// ignores it). Mirrored by SqaArgs in ops/sqa_int8.py.
+// (unused by K3). splits: the cluster size, 0 for the rule. Mirrored by
+// SqaArgs in ops/sqa_int8.py.
 struct SqaArgs {
   const void* pos;
   long long pos_stride;
@@ -101,16 +127,19 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kD = 64;
-constexpr int kThreads = 256;  // K2
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCols = 12288;  // K2: 48 KB of fp32 logits, no opt-in needed
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-// K3/K6: threads a CTA, the column limit and the largest cluster.
+// Threads a CTA, the column limits (K3/K6; K2, whose rule's clusters of 16
+// stage 768 columns a CTA at its limit) and the largest cluster.
 constexpr int kSqaThreads = 128;
 constexpr int kSqaWarps = kSqaThreads / 32;
 constexpr int kSqaMaxCols = 4096;
+constexpr int kV3MaxCols = 12288;
 constexpr int kMaxSplits = 16;
+
+// What the kernel body computes: K3/K6's attention, or K2's with an int8
+// query and bf16 or int8 weights for A.V.
+enum class Mode { kAttend, kQ8AvBf16, kQ8AvInt8 };
 
 // The split rule, from the sweep on the H100 (PERF.md): the largest power
 // of two up to 8 that keeps the grid within kGridCtas CTAs and the slices
@@ -187,9 +216,6 @@ struct Int8KV {
   __device__ __forceinline__ const int8_t* row(int b, int h, int d) const {
     return x + b * sb + h * sh + d * sd;
   }
-  __device__ __forceinline__ float scale(int b, int h, int c) const {
-    return s[b * s_sb + h * s_sh + c];
-  }
   __device__ __forceinline__ const float* scales(int b, int h) const {
     return s + b * s_sb + h * s_sh;
   }
@@ -221,31 +247,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Every thread gets the block's result; red[] is free again on return.
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, red[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r += red[i];
-  __syncthreads();
-  return r;
-}
-
 // ---------------------------------------------------------------------------
-// K3 / K6
+// The kernel body
 
 // The launch's plan, made by the host from SqaArgs and the pointers.
 struct SqaPlan {
@@ -444,6 +447,31 @@ __device__ __forceinline__ float pv_part(const unsigned char* row, const float* 
   return r;
 }
 
+// K2's int8 A.V share of one thread: a staged int8 V row against the int8
+// codes w8, every kParts-th vector of kCols bytes from `part` on, on dp4a:
+// four products a 32-bit word, summed in int32 (exact in any order).
+template <int kCols, int kParts>
+__device__ __forceinline__ int pv_part_int8(const unsigned char* row, const int8_t* w8, int n,
+                                            int part) {
+  int acc = 0;
+  const int nv = n / kCols;
+#pragma unroll 2
+  for (int u = part; u < nv; u += kParts) {
+    if constexpr (kCols == 16) {
+      const int4 x = *reinterpret_cast<const int4*>(row + u * 16);
+      const int4 w = *reinterpret_cast<const int4*>(w8 + u * 16);
+      acc = __dp4a(x.x, w.x, acc);
+      acc = __dp4a(x.y, w.y, acc);
+      acc = __dp4a(x.z, w.z, acc);
+      acc = __dp4a(x.w, w.w, acc);
+    } else {
+      acc = __dp4a(*reinterpret_cast<const int*>(row + u * 4),
+                   *reinterpret_cast<const int*>(w8 + u * 4), acc);
+    }
+  }
+  return acc;
+}
+
 // (m, l) += (m2, l2): both sums rescaled to the larger max and added (an
 // empty pair, l = 0, adds 0)
 __device__ __forceinline__ void combine(float& m, float& l, float m2, float l2) {
@@ -462,13 +490,16 @@ __device__ __forceinline__ void warp_combine(float& m, float& l) {
 
 constexpr int kRowsPerWarp = kD / kSqaWarps;  // multiplied by one warp
 
-template <typename KV, typename QT, typename OutT>
-__global__ void __launch_bounds__(kSqaThreads)
-sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan p) {
+template <typename KV, typename QT, typename OutT, Mode kMode>
+__device__ __forceinline__ void sqa_body(const QT* __restrict__ q, const KV& k, const KV& v,
+                                         OutT* __restrict__ out, const SqaPlan& p) {
   constexpr int kParts = kSqaThreads / kD;
+  constexpr bool kQ8 = kMode != Mode::kAttend;  // K2
+  constexpr bool kAv8 = kMode == Mode::kQ8AvInt8;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float pair_s[2][kMaxSplits * kSqaWarps];  // every warp's (max, sum) of the row
-  __shared__ float pvp_s[kParts][kD];
+  __shared__ float wmax_s[kAv8 ? kMaxSplits * kSqaWarps : 1];  // every warp's largest weight
+  __shared__ float pvp_s[kParts][kD];  // int32 bits with int8 A.V
   __shared__ uint64_t bar_s[2];  // K and the scales; V
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -495,8 +526,10 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
   // [warps][cap] partial dots; row 0 then holds the logits, then the weights
   float* part_s = reinterpret_cast<float*>(smem + 2 * kD * p.pitch);
   float* s_s = part_s;
-  float* ks_s = part_s + kSqaWarps * p.cap;  // [cap] (K6)
-  float* vs_s = ks_s + p.cap;                // [cap] (K6)
+  float* ks_s = part_s + kSqaWarps * p.cap;  // [cap] (K6, K2)
+  float* vs_s = ks_s + p.cap;                // [cap] (K6, K2)
+  // [cap] K2's int8 weights, in row 1 of the partial dots once they are added
+  [[maybe_unused]] int8_t* w8_s = reinterpret_cast<int8_t*>(part_s + p.cap);
   // [splits][64] on rank 0: every CTA's share of the output, written after
   // exchange one, when K is no longer read
   float* pv_s = reinterpret_cast<float*>(k_s);
@@ -538,6 +571,14 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
   if (!p.windows || (KV::kScaled && !p.bulk_scales)) __syncthreads();  // plain loads are in
   cluster_arrive_relaxed();  // waited for before the first write to a peer
 
+  // K2: the query's row scale, in every warp (IEEE division: no fast math)
+  const QT* qb = q + b * p.q_sb + h * p.q_sh;
+  [[maybe_unused]] float qs = 1.f;
+  if constexpr (kQ8) {
+    qs = warp_max(fmaxf(fabsf(to_float(qb[lane])), fabsf(to_float(qb[lane + 32]))));
+    qs = fmaxf(qs / 127.f, 1e-12f);
+  }
+
   // partial dots: warp w over its 16 d rows (q in registers), lanes over
   // the slice's 32-bit words
   const int words = n * KV::kBytes / 4;
@@ -547,7 +588,8 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
     int off[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      qd[i] = to_float(q[b * p.q_sb + h * p.q_sh + d0 + i]);
+      qd[i] = to_float(qb[d0 + i]);
+      if constexpr (kQ8) qd[i] = fminf(fmaxf(rintf(qd[i] / qs), -127.f), 127.f);
       off[i] = (d0 + i) * p.pitch +
                window_shift(reinterpret_cast<const unsigned char*>(k.row(b, h, d0 + i) + c0),
                             p.windows);
@@ -584,7 +626,11 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
         float dot = part_s[j];  // overwritten by the logit below, in this thread
 #pragma unroll
         for (int i = 1; i < kSqaWarps; ++i) dot += part_s[i * p.cap + j];
-        if constexpr (KV::kScaled) dot *= ks_s[j];
+        if constexpr (kQ8) {
+          dot *= ks_s[j] * qs;  // the plain version folds k_scale * qs first
+        } else if constexpr (KV::kScaled) {
+          dot *= ks_s[j];
+        }
         s = dot * p.sm_scale;
       }
       if (s > m) {  // one exp a column: rescale the sum when the max moves
@@ -607,19 +653,46 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
     peer[rank * kSqaWarps + warp] = m;
     peer[kMaxSplits * kSqaWarps + rank * kSqaWarps + warp] = l;
   }
-  cluster.sync();
+  cluster.sync();  // exchange one
   float row_m = -INFINITY, row_l = 0.f;
   for (int i = lane; i < p.splits * kSqaWarps; i += 32) {
     combine(row_m, row_l, pair_s[0][i], pair_s[1][i]);
   }
   warp_combine(row_m, row_l);
 
-  // the weights, normalised by the row's sum
+  // the weights: normalised by the row's sum (K3, K6), or K2's pv (the sum
+  // divides the output)
+  [[maybe_unused]] float wmax = 0.f;  // K2, int8 A.V: this thread's largest weight (pv >= 0)
   for (int j = tid; j < n; j += kSqaThreads) {
     const float s = s_s[j];
-    s_s[j] = s == -INFINITY ? 0.f
-                            : KV::weight_of(expf(s - row_m) / row_l,
-                                            KV::kScaled ? vs_s[j] : 1.f);
+    float w = 0.f;
+    if (s != -INFINITY) {
+      if constexpr (kQ8) {
+        w = expf(s - row_m) * vs_s[j];
+        if constexpr (kAv8) {
+          wmax = fmaxf(wmax, w);
+        } else {
+          w = __bfloat162float(__float2bfloat16(w));
+        }
+      } else {
+        w = KV::weight_of(expf(s - row_m) / row_l, KV::kScaled ? vs_s[j] : 1.f);
+      }
+    }
+    s_s[j] = w;
+  }
+  // K2, int8 A.V: every warp's largest weight into every CTA; the row's
+  // wmax is their max, then the codes w8 = clip(rint(pv * (127 / wmax)))
+  [[maybe_unused]] float row_wmax = 0.f;
+  if constexpr (kAv8) {
+    wmax = warp_max(wmax);
+    if (lane < p.splits) cluster.map_shared_rank(wmax_s, lane)[rank * kSqaWarps + warp] = wmax;
+    cluster.sync();  // the row's largest weight
+    row_wmax = 1e-20f;
+    for (int i = 0; i < p.splits * kSqaWarps; ++i) row_wmax = fmaxf(row_wmax, wmax_s[i]);
+    const float r = 127.f / row_wmax;
+    for (int j = tid; j < n; j += kSqaThreads) {
+      w8_s[j] = static_cast<int8_t>(fminf(fmaxf(rintf(s_s[j] * r), -127.f), 127.f));
+    }
   }
   mbar_wait(bar_v);
   __syncthreads();
@@ -627,29 +700,59 @@ sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan
   __syncthreads();
 
   // exchange two: P.V over the slice, a thread per (d, part), into rank 0's
-  // shared memory; rank 0 adds the CTAs' 64-vectors in rank order
+  // shared memory; rank 0 adds the CTAs' 64-vectors in rank order (int8
+  // A.V: int32, exact in any order)
   {
     const int d = tid % kD;
     const int part = tid / kD;
     const unsigned char* row =
         v_s + d * p.pitch +
         window_shift(reinterpret_cast<const unsigned char*>(v.row(b, h, d) + c0), p.windows);
-    pvp_s[part][d] = p.pv16 ? pv_part<KV, 16, kParts>(row, s_s, n, part)
-                            : pv_part<KV, 4, kParts>(row, s_s, n, part);
+    if constexpr (kAv8) {
+      pvp_s[part][d] = __int_as_float(p.pv16 ? pv_part_int8<16, kParts>(row, w8_s, n, part)
+                                             : pv_part_int8<4, kParts>(row, w8_s, n, part));
+    } else {
+      pvp_s[part][d] = p.pv16 ? pv_part<KV, 16, kParts>(row, s_s, n, part)
+                              : pv_part<KV, 4, kParts>(row, s_s, n, part);
+    }
   }
   __syncthreads();
   if (tid < kD) {
     float r = pvp_s[0][tid];
 #pragma unroll
-    for (int i = 1; i < kParts; ++i) r += pvp_s[i][tid];
+    for (int i = 1; i < kParts; ++i) {
+      r = kAv8 ? __int_as_float(__float_as_int(r) + __float_as_int(pvp_s[i][tid]))
+               : r + pvp_s[i][tid];
+    }
     cluster.map_shared_rank(pv_s, 0)[rank * kD + tid] = r;
   }
-  cluster.sync();
+  cluster.sync();  // exchange two
   if (rank == 0 && tid < kD) {
-    float o = 0.f;
-    for (int r = 0; r < p.splits; ++r) o += pv_s[r * kD + tid];
-    store(o, out + b * p.o_sb + h * p.o_sh + tid);
+    OutT* o = out + b * p.o_sb + h * p.o_sh + tid;
+    if constexpr (kAv8) {
+      int acc = 0;
+      for (int r = 0; r < p.splits; ++r) acc += __float_as_int(pv_s[r * kD + tid]);
+      store(static_cast<float>(acc) * (row_wmax / 127.f) / row_l, o);
+    } else {
+      float sum = 0.f;
+      for (int r = 0; r < p.splits; ++r) sum += pv_s[r * kD + tid];
+      store(kQ8 ? sum / row_l : sum, o);
+    }
   }
+}
+
+// K3 and K6.
+template <typename KV, typename QT, typename OutT>
+__global__ void __launch_bounds__(kSqaThreads)
+sqa_kernel(const QT* __restrict__ q, KV k, KV v, OutT* __restrict__ out, SqaPlan p) {
+  sqa_body<KV, QT, OutT, Mode::kAttend>(q, k, v, out, p);
+}
+
+// K2: a kernel of its own name, so a profile tells its launches from K6's.
+template <typename QT, bool kAvInt8>
+__global__ void __launch_bounds__(kSqaThreads)
+sqa_v3_kernel(const QT* __restrict__ q, Int8KV k, Int8KV v, QT* __restrict__ out, SqaPlan p) {
+  sqa_body<Int8KV, QT, QT, kAvInt8 ? Mode::kQ8AvInt8 : Mode::kQ8AvBf16>(q, k, v, out, p);
 }
 
 bool aligned(const void* ptr, long long sb, long long sh, long long sd, int elem, int bytes) {
@@ -657,12 +760,10 @@ bool aligned(const void* ptr, long long sb, long long sh, long long sd, int elem
          (sh * elem) % bytes == 0 && (sd * elem) % bytes == 0;
 }
 
-// The kernel's attributes, set once: the opt-in shared memory and clusters
+// A kernel's attributes, set once: the opt-in shared memory and clusters
 // past the portable 8. Returns the dynamic shared memory a launch may take,
 // or minus the CUDA error.
-template <typename KV, typename QT, typename OutT>
-int configure() {
-  const void* fn = reinterpret_cast<const void*>(&sqa_kernel<KV, QT, OutT>);
+int configure(const void* fn) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaGetDevice(&dev);
@@ -680,13 +781,17 @@ int configure() {
   return err == cudaSuccess ? dyn : -static_cast<int>(err);
 }
 
-template <typename KV, typename QT, typename OutT>
-int launch(const SqaArgs& a, const void* q, KV k, KV v, void* out) {
-  if (a.batch < 1 || a.heads < 1 || a.cols < 1 || a.cols > kSqaMaxCols || a.batch > 65535 ||
+// One launch of kernel kFn (sqa_kernel or sqa_v3_kernel) over rows of at
+// most max_cols columns, split as SqaArgs says or by the rule's `rule_splits`.
+template <typename KV, typename QT, typename OutT,
+          void (*kFn)(const QT*, KV, KV, OutT*, SqaPlan)>
+int launch(const SqaArgs& a, int max_cols, int rule_splits, const void* q, KV k, KV v,
+           void* out) {
+  if (a.batch < 1 || a.heads < 1 || a.cols < 1 || a.cols > max_cols || a.batch > 65535 ||
       a.heads > 65535 || a.splits < 0 || a.splits > kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const int max_dyn = configure<KV, QT, OutT>();
+  static const int max_dyn = configure(reinterpret_cast<const void*>(kFn));
   if (max_dyn < 0) return -max_dyn;
   SqaPlan p;
   p.pos = Bound{static_cast<const int*>(a.pos), a.pos_stride, a.pos_value};
@@ -694,7 +799,7 @@ int launch(const SqaArgs& a, const void* q, KV k, KV v, void* out) {
   p.q_sb = a.q_sb, p.q_sh = a.q_sh, p.o_sb = a.o_sb, p.o_sh = a.o_sh;
   p.sm_scale = a.sm_scale;
   p.cols = a.cols;
-  p.splits = a.splits ? a.splits : split_count(a.cols, a.batch * a.heads);
+  p.splits = a.splits ? a.splits : rule_splits;
   constexpr int e = KV::kBytes;
   // rows on 4-byte boundaries are staged in 16-byte windows; on 16-byte
   // boundaries with 16-byte slices P.V reads 16 bytes at a time (K3 at
@@ -732,142 +837,9 @@ int launch(const SqaArgs& a, const void* q, KV k, KV v, void* out) {
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, sqa_kernel<KV, QT, OutT>,
-                                             static_cast<const QT*>(q), k, v,
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kFn, static_cast<const QT*>(q), k, v,
                                              static_cast<OutT*>(out), p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// K2: single-query cross-attention with an int8 query (ops/sqa_v3.py).
-//
-// The TPU kernel's arithmetic, in its order, with the query's row
-// quantisation and the scale fold that JAX runs in XLA outside the kernel
-// fused in (one warp reduction over D = 64 instead of ~6 launches):
-//
-//   qs    = max(max_d |q| / 127, 1e-12)              per (row, head)
-//   q8    = clip(rint(q / qs), +-127)                round half to even
-//   s[c]  = (float(int32 q8 . k8[:, c]) * (k_scale[c] * qs)) * D^-0.5
-//   p     = exp(s - max s), denom = sum p, pv = p * v_scale[c]
-//   av_int8:  wmax = max(max pv, 1e-20); w8 = clip(rint(pv * (127 / wmax)))
-//             out = (float(int32 w8 . v8[d, :]) * (wmax / 127)) / denom
-//   else:     out = (sum bf16(pv) * v8[d, :], fp32) / denom
-//
-// Columns outside [valid_from, pos] (the 1500 -> 1536 lane padding: pos =
-// s_len - 1, valid_from = 0) take the TPU kernel's -0.7 FLT_MAX logit, whose
-// weight is an exact 0; they are never read. The int32 sums are exact: the
-// QK dot is at most 64 * 127^2, the A.V sum 1500 * 127^2 < 2^31.
-//
-// What bounds it on the H100: at (4, 20, 64, 1500 of 1536) it must read
-// 15.36 MB of int8 K/V and 0.96 MB of scales (>= 4.9 us at 3.35 TB/s); its
-// ~3.1e7 int8 operations are negligible. Byte-bound like K6, whose design it
-// follows: one CTA per (row, head), threads over columns for the logits
-// (coalesced along the d-major slice), fp32 logits and weights in shared
-// memory, block reductions, warps over d for A.V. dp4a or mma int8, split-S,
-// vector loads and cp.async are later work.
-
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename QT, bool kAvInt8>
-__global__ void __launch_bounds__(kThreads)
-sqa_v3_kernel(const QT* __restrict__ q, Int8KV k, Int8KV v, QT* __restrict__ out, Bound pos,
-              Bound valid_from, int cols, long long q_sb, long long q_sh, long long o_sb,
-              long long o_sh, float sm_scale) {
-  extern __shared__ float w_s[];  // [cols]: logits, then weights (w8 as floats)
-  __shared__ int q8_s[kD];
-  __shared__ float qs_s;
-  __shared__ float red[kWarps];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  // the wrapper passes 0 <= valid_from <= pos < cols
-  const int lo = max(valid_from.at(b), 0);
-  const int hi = min(pos.at(b), cols - 1);
-
-  if (warp == 0) {  // quantize_q_rows; IEEE division (no fast math)
-    const QT* qb = q + b * q_sb + h * q_sh;
-    const float x0 = to_float(qb[lane]);
-    const float x1 = to_float(qb[lane + 32]);
-    const float qs = fmaxf(warp_max(fmaxf(fabsf(x0), fabsf(x1))) / 127.f, 1e-12f);
-    q8_s[lane] = static_cast<int>(fminf(fmaxf(rintf(x0 / qs), -127.f), 127.f));
-    q8_s[lane + 32] = static_cast<int>(fminf(fmaxf(rintf(x1 / qs), -127.f), 127.f));
-    if (lane == 0) qs_s = qs;
-  }
-  __syncthreads();
-  const float qs = qs_s;
-
-  const int8_t* kb = k.row(b, h, 0);
-  float m = -INFINITY;
-  for (int c = lo + tid; c <= hi; c += kThreads) {
-    int dot = 0;
-#pragma unroll 16
-    for (int d = 0; d < kD; ++d) dot += q8_s[d] * static_cast<int>(kb[d * k.sd + c]);
-    const float s = (static_cast<float>(dot) * (k.scale(b, h, c) * qs)) * sm_scale;
-    w_s[c] = s;
-    m = fmaxf(m, s);
-  }
-  m = block_max(m, red);
-
-  float l = 0.f;
-  float wmax = 0.f;  // pv >= 0
-  for (int c = lo + tid; c <= hi; c += kThreads) {
-    const float p = expf(w_s[c] - m);
-    l += p;
-    const float pv = p * v.scale(b, h, c);
-    w_s[c] = pv;
-    wmax = fmaxf(wmax, pv);
-  }
-  l = block_sum(l, red);
-  if constexpr (kAvInt8) {
-    wmax = fmaxf(block_max(wmax, red), 1e-20f);
-    const float r = 127.f / wmax;
-    for (int c = lo + tid; c <= hi; c += kThreads) {
-      w_s[c] = fminf(fmaxf(rintf(w_s[c] * r), -127.f), 127.f);
-    }
-  }
-  __syncthreads();
-
-  QT* ob = out + b * o_sb + h * o_sh;
-  for (int d = warp; d < kD; d += kWarps) {
-    const int8_t* vrow = v.row(b, h, d);
-    if constexpr (kAvInt8) {
-      int acc = 0;
-      for (int c = lo + lane; c <= hi; c += 32) {
-        acc += static_cast<int>(w_s[c]) * static_cast<int>(vrow[c]);
-      }
-      acc = warp_sum_int(acc);
-      if (lane == 0) store(static_cast<float>(acc) * (wmax / 127.f) / l, ob + d);
-    } else {
-      float acc = 0.f;
-      for (int c = lo + lane; c <= hi; c += 32) {
-        acc = fmaf(__bfloat162float(__float2bfloat16(w_s[c])), static_cast<float>(vrow[c]),
-                   acc);
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) store(acc / l, ob + d);
-    }
-  }
-}
-
-template <typename QT, bool kAvInt8>
-int launch_v3(const SqaArgs& a, const void* q, Int8KV k, Int8KV v, void* out) {
-  if (a.batch < 1 || a.heads < 1 || a.cols < 1 || a.cols > kMaxCols || a.batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  sqa_v3_kernel<QT, kAvInt8><<<dim3(a.heads, a.batch), kThreads, a.cols * sizeof(float),
-                               static_cast<cudaStream_t>(a.stream)>>>(
-      static_cast<const QT*>(q), k, v, static_cast<QT*>(out),
-      Bound{static_cast<const int*>(a.pos), a.pos_stride, a.pos_value},
-      Bound{static_cast<const int*>(a.valid_from), a.vf_stride, a.vf_value}, a.cols, a.q_sb,
-      a.q_sh, a.o_sb, a.o_sh, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,7 +847,7 @@ int launch_v3(const SqaArgs& a, const void* q, Int8KV k, Int8KV v, void* out) {
 
 extern "C" {
 
-// K3's and K6's split rule, for the wrappers' mirror to be held against.
+// The split rule, for the wrappers' mirror to be held against.
 int whisper_sqa_split_count(int cols, int rows) { return split_count(cols, rows); }
 
 // K6. q and out (B, H, 64) in one type (bf16 or fp32); k8, v8 (B, H, 64, S)
@@ -887,7 +859,8 @@ int whisper_sqa_split_count(int cols, int rows) { return split_count(cols, rows)
                    a->k_sh, a->k_sd, a->ks_sb, a->ks_sh};                                       \
     const Int8KV v{static_cast<const int8_t*>(v8), static_cast<const float*>(v_scale), a->v_sb, \
                    a->v_sh, a->v_sd, a->vs_sb, a->vs_sh};                                       \
-    return launch<Int8KV, T, T>(*a, q, k, v, out);                                              \
+    return launch<Int8KV, T, T, sqa_kernel<Int8KV, T, T>>(                                      \
+        *a, kSqaMaxCols, split_count(a->cols, a->batch * a->heads), q, k, v, out);              \
   }
 
 WHISPER_SQA_INT8_ENTRY(whisper_sqa_int8_bf16, __nv_bfloat16)
@@ -899,15 +872,16 @@ WHISPER_SQA_INT8_ENTRY(whisper_sqa_int8_f32, float)
   int NAME(const SqaArgs* a, const void* q, const void* k, const void* v, void* out) {        \
     const Bf16KV kk{static_cast<const __nv_bfloat16*>(k), a->k_sb, a->k_sh, a->k_sd};         \
     const Bf16KV vv{static_cast<const __nv_bfloat16*>(v), a->v_sb, a->v_sh, a->v_sd};         \
-    return launch<Bf16KV, __nv_bfloat16, OutT>(*a, q, kk, vv, out);                           \
+    return launch<Bf16KV, __nv_bfloat16, OutT, sqa_kernel<Bf16KV, __nv_bfloat16, OutT>>(     \
+        *a, kSqaMaxCols, split_count(a->cols, a->batch * a->heads), q, kk, vv, out);          \
   }
 
 WHISPER_SQA_SELF_ENTRY(whisper_sqa_self_bf16, __nv_bfloat16)
 WHISPER_SQA_SELF_ENTRY(whisper_sqa_self_f32, float)
 
 // K2. q and out (B, H, 64) in one type (bf16 or fp32); k8, v8 (B, H, 64, S)
-// int8 and k_scale, v_scale (B, H, 1, S) fp32, unit column strides; the
-// bounds carry s_len; av_int8 != 0 takes the int8 A.V product.
+// int8 and k_scale, v_scale (B, H, 1, S) fp32, unit column strides, S <=
+// 12288; the bounds carry s_len; av_int8 != 0 takes the int8 A.V product.
 #define WHISPER_SQA_V3_ENTRY(NAME, T)                                                           \
   int NAME(const SqaArgs* a, int av_int8, const void* q, const void* k8, const void* k_scale,   \
            const void* v8, const void* v_scale, void* out) {                                    \
@@ -915,8 +889,11 @@ WHISPER_SQA_SELF_ENTRY(whisper_sqa_self_f32, float)
                    a->k_sh, a->k_sd, a->ks_sb, a->ks_sh};                                       \
     const Int8KV v{static_cast<const int8_t*>(v8), static_cast<const float*>(v_scale), a->v_sb, \
                    a->v_sh, a->v_sd, a->vs_sb, a->vs_sh};                                       \
-    return av_int8 ? launch_v3<T, true>(*a, q, k, v, out)                                       \
-                   : launch_v3<T, false>(*a, q, k, v, out);                                     \
+    const int rule = split_count(a->cols, a->batch * a->heads);                                 \
+    return av_int8 ? launch<Int8KV, T, T, sqa_v3_kernel<T, true>>(*a, kV3MaxCols, rule, q, k, v, \
+                                                                  out)                          \
+                   : launch<Int8KV, T, T, sqa_v3_kernel<T, false>>(*a, kV3MaxCols, rule, q, k,  \
+                                                                   v, out);                     \
   }
 
 WHISPER_SQA_V3_ENTRY(whisper_sqa_v3_bf16, __nv_bfloat16)

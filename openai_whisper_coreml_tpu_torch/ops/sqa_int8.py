@@ -106,8 +106,8 @@ class SqaArgs(ctypes.Structure):
     """The launch's scalar arguments, `struct SqaArgs` in `csrc/sqa.cu`:
     per-row bounds as (pointer, element stride, value), strides in elements
     (K/V and scales: one layer's (B, H, D, S) and (B, H, 1, S) slice; K3
-    leaves the scales' at 0), the stream, D^-0.5 and the cluster size of
-    K3/K6 (0: `split_count`)."""
+    leaves the scales' at 0), the stream, D^-0.5 and the cluster size
+    (0: `split_count`)."""
 
     _fields_ = ([("pos", ctypes.c_void_p), ("pos_stride", ctypes.c_longlong),
                  ("valid_from", ctypes.c_void_p), ("vf_stride", ctypes.c_longlong)]

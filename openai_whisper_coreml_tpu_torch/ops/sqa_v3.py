@@ -19,6 +19,11 @@ On a CUDA tensor the wrapper launches the kernel in `csrc/sqa.cu`, where
 the query's quantisation and the scale fold are fused in, or raises; on a
 CPU tensor it runs `sqa_cross_int8_reference`, the kernel's math step by
 step in PyTorch. `sqa_cross_reference` is JAX's inline-dequant oracle.
+The kernel is K6's kernel body in a mode of its own: each row's columns
+split across a thread-block cluster of `split_count(cols, batch * heads)`
+CTAs (`ops/sqa_int8.py`; `splits` forces another size), combined over
+distributed shared memory in the same launch, with one more exchange for
+the row's largest weight when A.V runs on int8 weights.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from ._build import count_launch
 from .sqa_int8 import MASK_VALUE, SqaArgs, _check_int8_kv, launch_args
 from .sqa_int8 import load_kernel as _load_sqa
 
-MAX_COLS = 12288  # kMaxCols in csrc/sqa.cu: K2's fp32 logits in 48 KB of shared memory
+# kV3MaxCols in csrc/sqa.cu: at 12288 columns the rule's clusters of 16
+# CTAs stage 768 columns a CTA
+MAX_COLS = 12288
 
 # Kernel launches made by `sqa_cross_int8` (an int that callers reset;
 # `count_launch` adds to it under a lock).
@@ -104,11 +111,8 @@ def sqa_cross_reference(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor
     return torch.einsum("bhs,bhds->bhd", w, vd).to(q.dtype)
 
 
-@functools.cache
-def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and load the library that holds K2 (with K3
-    and K6, `csrc/sqa.cu`); sets K2's C types."""
-    lib = _load_sqa()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C types of K2's entry points in `lib`."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -116,15 +120,25 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load the library that holds K2 (with K3
+    and K6, `csrc/sqa.cu`); sets K2's C types."""
+    return bind(_load_sqa())
+
+
 def sqa_cross_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
                    v8: torch.Tensor, v_scale: torch.Tensor, *,
-                   s_len: Optional[int] = None, av_int8: bool = True) -> torch.Tensor:
+                   s_len: Optional[int] = None, av_int8: bool = True,
+                   splits: int = 0) -> torch.Tensor:
     """One cross-attention decode step: (B, H, D) queries (bf16 or fp32)
     against int8 (B, H, D, S) K/V with fp32 (B, H, 1, S) column scales, the
     first `s_len` columns real (default S); returns (B, H, D) in q's dtype.
 
-    CUDA tensors launch the Hopper kernel (D = 64) on the current stream or
-    raise; CPU tensors take `sqa_cross_int8_reference`.
+    CUDA tensors launch the Hopper kernel (D = 64) on the current stream,
+    with `splits` CTAs a row (0: the split rule), or raise (also when a
+    forced split leaves a CTA more columns than its shared memory holds);
+    CPU tensors take `sqa_cross_int8_reference`.
     """
     if q.device.type == "cpu":
         return sqa_cross_int8_reference(q, k8, k_scale, v8, v_scale, s_len=s_len,
@@ -146,7 +160,7 @@ def sqa_cross_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     with torch.cuda.device(q.device):
         # s_len as K6's bounds: columns 0 <= c <= s_len - 1
         args = launch_args(s_len - 1, 0, q.stride()[:2], out.stride()[:2], k8, v8,
-                           k_scale, v_scale)
+                           k_scale, v_scale, splits)
         err = fn(args, int(av_int8), q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
                  v8.data_ptr(), v_scale.data_ptr(), out.data_ptr())
     if err != 0:

@@ -1,6 +1,7 @@
 """The Hopper kernels (flash attention, log-mel, decode self-attention K3,
 int8 single-query attention K6, int8 x int8 cross-attention K2) against
-their plain versions, on the card.
+their plain versions, on the card (the log-mel also against the fp64
+oracle of tests/oracles.py).
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere. The file
 imports no JAX, so it runs on a machine without it:
@@ -24,6 +25,8 @@ from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
 from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
 from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
 from openai_whisper_coreml_tpu_torch.ops import sqa_v3 as sv
+
+from .oracles import oracle_log_mel
 
 NO_CARD = "needs an NVIDIA GPU with nvcc (the kernel has no CPU mode)"
 
@@ -108,13 +111,48 @@ def test_mel_kernel_rejects_what_it_does_not_take():
         mk.log_mel_kernel(torch.zeros(1, 561, device="cuda"), 80)
     with pytest.raises(TypeError, match="fp32"):
         mk.log_mel_kernel(torch.zeros(1, 560, device="cuda").half(), 80)
-    # the kernel checks the tables' row width against its own bin tiling
-    cw, sw, fbt, ranges = mk._tables(80, torch.device("cuda"))
+    # the kernel checks the table's length against its own layout
+    table, pack, ranges = mk._tables(80, torch.device("cuda"))
     x, out = torch.zeros(1, 560, device="cuda"), torch.empty(1, 1, 80, device="cuda")
     err = mk.load_kernel().whisper_log_mel_f32(
-        x.data_ptr(), 560, 560, 1, 1, cw.data_ptr(), sw.data_ptr(), mk.BINS_PAD - 8,
-        fbt.data_ptr(), ranges.data_ptr(), 80, out.data_ptr(), None)
+        x.data_ptr(), 560, 560, 1, 1, table.data_ptr(), mk.TABLE_FLOATS - 2,
+        pack.data_ptr(), ranges.data_ptr(), 80, out.data_ptr(), None)
     assert err == 1  # cudaErrorInvalidValue, before any launch
+
+
+def _signal(kind, seconds, seed):
+    """Audio without energy in most bins: a pure tone, silence, or a
+    modulated 200 Hz tone in noise (chip_smoke.speechy)."""
+    t = np.arange(int(seconds * 16000)) / 16000
+    if kind == "tone":
+        return (0.5 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+    if kind == "silence":
+        return np.zeros(t.shape, np.float32)
+    rng = np.random.default_rng(seed)
+    return (0.2 * np.sin(2 * np.pi * 200 * t) * (1 + 0.5 * np.sin(2 * np.pi * 2 * t))
+            + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("kind", ["tone", "silence", "speechy"])
+def test_mel_kernel_holds_the_fp64_gate_without_energy_on_card(kind, n_mels):
+    """Bins with no real energy hold fp32 rounding noise in the kernel and
+    the plain version alike; after the epilogue (floor at max - 8) the
+    kernel is within 1e-3 of the fp64 oracle. Silence is -10 in every bin
+    before it."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    x = _signal(kind, 30, n_mels)
+    before = mk.launches
+    mel = taudio.log_mel_spectrogram(torch.from_numpy(x).cuda(), n_mels)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    ref = oracle_log_mel(x, taudio.mel_filters(n_mels))
+    assert np.abs(mel.cpu().numpy() - ref).max() <= 1e-3
+    if kind == "silence":
+        padded = torch.zeros(2, 160 * 3000 + 400, device="cuda")
+        assert (mk.log_mel_kernel(padded, n_mels) == -10.0).all()
 
 
 def _bounds(b, c, g):
@@ -318,6 +356,118 @@ def test_sqa_v3_matches_plain_version_on_card(shape, s_len, dtype, av_int8):
         poisoned = sv.sqa_cross_int8(q, k8, ks, v8, vs, s_len=s_len, av_int8=av_int8)
         torch.cuda.synchronize()
         assert torch.equal(out, poisoned)
+
+
+def _sqa_v3_inputs(b, h, s, dtype, seed, poison_from=None):
+    """q (B, H, 64) in dtype, int8 K/V (B, H, 64, S) with fp32 column
+    scales; columns from `poison_from` on hold 127 with 1e6 scales."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, 64, generator=g, device="cuda").to(dtype)
+    k8, ks = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    v8, vs = dec_mod.quantize_kv_column(torch.randn(b, h, 64, s, generator=g, device="cuda"))
+    kv = [k8, ks, v8, vs]
+    if poison_from is not None:
+        for x, val in zip(kv, (127, 1e6, 127, 1e6)):
+            x[..., poison_from:] = val
+    return q, kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,s_len", [((4, 20, 1536), 1500), ((3, 4, 256), 199),
+                                         ((2, 2, 203), 201)])
+def test_sqa_v3_forced_split_counts_match_the_plain_version_on_card(shape, s_len, dtype,
+                                                                    splits):
+    """Any cluster size the caller forces gives the plain version's result
+    in both A.V modes (16-byte rows, and 203-byte rows on plain loads), and
+    the padding past s_len, poisoned with 127 and 1e6 scales, leaves the
+    output bit-identical. One CTA cannot stage a 1536-column row's K and V
+    (235 KB of shared memory): that launch raises before it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    b, h, s = shape
+    q, kv = _sqa_v3_inputs(b, h, s, dtype, seed=splits)
+    _, poisoned = _sqa_v3_inputs(b, h, s, dtype, seed=splits, poison_from=s_len)
+    for av in (True, False):
+        before = sv.launches
+        if (s, splits) == (1536, 1):
+            with pytest.raises(RuntimeError, match="CUDA error 1"):
+                sv.sqa_cross_int8(q, *kv, s_len=s_len, av_int8=av, splits=splits)
+            assert sv.launches == before
+            continue
+        out = sv.sqa_cross_int8(q, *kv, s_len=s_len, av_int8=av, splits=splits)
+        dirty = sv.sqa_cross_int8(q, *poisoned, s_len=s_len, av_int8=av, splits=splits)
+        torch.cuda.synchronize()
+        assert sv.launches == before + 2
+        _close(out, sv.sqa_cross_int8_reference(q, *kv, s_len=s_len, av_int8=av), dtype)
+        assert torch.equal(out, dirty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boost", [False, True])
+@pytest.mark.parametrize("splits", [0, 2, 8])
+@pytest.mark.parametrize("b", [4, 24])
+def test_sqa_v3_int8_codes_are_the_plain_versions_on_card(b, splits, boost):
+    """With int8 A.V the kernel divides the integer sum times wmax / 127
+    by the softmax sum last, as the plain version does, and only the sum
+    is added in another order: if the codes, wmax and the integer sums are
+    the plain version's, out / plain is one constant a row (l_plain /
+    l_kernel) to within three fp32 roundings. A code one step off moves the
+    ratio of every d whose V value there is not 0 by ~|v8| / |sum|, three
+    orders above that. With `boost` one column's V scale is raised 50-fold,
+    so the largest weight lies in another CTA's slice than the largest
+    logit."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, kv = _sqa_v3_inputs(b, 20, 1536, torch.float32, seed=b + splits, poison_from=1500)
+    if boost:
+        kv[3][..., 1400] *= 50
+    out = sv.sqa_cross_int8(q, *kv, s_len=1500, splits=splits)
+    plain = sv.sqa_cross_int8_reference(q, *kv, s_len=1500)
+    torch.cuda.synchronize()
+    nonzero = plain != 0
+    assert torch.equal(out != 0, nonzero) and nonzero.float().mean() > 0.99
+    ratio = torch.where(nonzero, out / torch.where(nonzero, plain, 1.0), float("nan"))
+    row = ratio.nanmedian(dim=-1, keepdim=True).values
+    spread = ((ratio - row).abs() / row).nan_to_num(0.0)
+    assert spread.max().item() <= 4e-7
+    assert (row - 1).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s", [(8, 1536), (2, 203)])
+def test_sqa_v3_two_launches_give_the_same_bits_on_card(b, s, dtype):
+    """No atomics: the combine adds in rank order (int32 with int8 A.V),
+    so the same inputs give the same bits on every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, kv = _sqa_v3_inputs(b, 20, s, dtype, seed=s)
+    for av in (True, False):
+        first = sv.sqa_cross_int8(q, *kv, s_len=s - 3, av_int8=av)
+        second = sv.sqa_cross_int8(q, *kv, s_len=s - 3, av_int8=av)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_len", [sv.MAX_COLS, sv.MAX_COLS - 37])
+def test_sqa_v3_takes_its_column_limit_on_card(s_len, dtype):
+    """12288 columns, the rule's clusters of 16 (768 columns a CTA), both
+    A.V modes; one column more is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, kv = _sqa_v3_inputs(1, 4, sv.MAX_COLS, dtype, seed=7)
+    assert si.split_count(sv.MAX_COLS, 4) == si.MAX_SPLITS
+    for av in (True, False):
+        out = sv.sqa_cross_int8(q, *kv, s_len=s_len, av_int8=av)
+        torch.cuda.synchronize()
+        _close(out, sv.sqa_cross_int8_reference(q, *kv, s_len=s_len, av_int8=av), dtype)
+    q, kv = _sqa_v3_inputs(1, 1, sv.MAX_COLS + 1, dtype, seed=8)
+    with pytest.raises(ValueError, match=f"1..{sv.MAX_COLS} columns"):
+        sv.sqa_cross_int8(q, *kv)
 
 
 @pytest.mark.cuda

@@ -53,20 +53,34 @@ def test_log_mel_spectrogram_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("n_mels", [80, 128])
 def test_kernel_tables(n_mels):
-    """The kernel's operands, checked where the CPU can see them: the padded
-    Hann-folded DFT matrices and the filterbank ranges it skips outside of."""
-    cw, sw, fbt, ranges = mk._tables(n_mels, torch.device("cpu"))
-    wc, ws = mk.windowed_dft_matrices()
-    assert cw.shape == sw.shape == (400, mk.BINS_PAD)
-    np.testing.assert_array_equal(cw[:, :201].numpy(), wc)
-    np.testing.assert_array_equal(sw[:, :201].numpy(), ws)
-    assert not cw[:, 201:].any() and not sw[:, 201:].any()
+    """The kernel's operands, checked where the CPU can see them: the FFT's
+    twiddles against fp64 (each rounded once to fp32, the parts that are
+    exactly 0 at 0), the Hann window, and the packed filterbank: the ranges
+    it skips outside of, and their weights, which unpack to the
+    filterbank."""
+    table, pack, ranges = mk._tables(n_mels, torch.device("cpu"))
+    assert table.dtype == torch.float32 and table.shape == (mk.TABLE_FLOATS,)
+    # the kernel reads them through bare pointers
+    assert table.is_contiguous() and pack.is_contiguous() and ranges.is_contiguous()
+    tw = table[:2 * mk.N_TWIDDLES].double().reshape(-1, 2).numpy()
+    k1, n2 = np.meshgrid(np.arange(8), np.arange(25), indexing="ij")
+    for (lo, hi), n, e in (((0, 200), 200, (k1 * n2).ravel()), ((200, 225), 25, np.arange(25)),
+                           ((225, 425), 400, np.arange(200))):
+        exact = np.exp(-2j * np.pi * e / n)
+        for got, want in ((tw[lo:hi, 0], exact.real), (tw[lo:hi, 1], exact.imag)):
+            np.testing.assert_array_equal(got, np.where(np.abs(want) < 1e-12, 0, want)
+                                          .astype(np.float32))
+        assert np.abs(tw[lo:hi, 0] + 1j * tw[lo:hi, 1] - exact).max() < 6e-8
+    np.testing.assert_array_equal(table[2 * mk.N_TWIDDLES:].numpy(), taudio.hann_window(400))
     fb = taudio.mel_filters(n_mels)
-    np.testing.assert_array_equal(fbt.numpy(), fb.T)
-    for g, (lo, hi) in enumerate(ranges.numpy()):
+    unpacked = np.zeros_like(fb)
+    for g, (lo, hi, start) in enumerate(ranges.numpy()):
         rows = fb[4 * g:4 * g + 4]
         assert not rows[:, :lo].any() and not rows[:, hi:].any()
         assert rows[:, lo].any() and rows[:, hi - 1].any()
+        unpacked[4 * g:4 * g + 4, lo:hi] = pack[start:start + hi - lo].numpy().T
+    np.testing.assert_array_equal(unpacked, fb)
+    assert pack.shape == (int((ranges[:, 1] - ranges[:, 0]).sum()), 4)
 
 
 def test_kernel_wrapper_rejects_other_devices():

@@ -19,13 +19,16 @@ first query in bf16 and in fp32 and on the chain's last layer
 (`kernel_and_plain`), and its error against the inline-dequant oracle on
 layer 0 (`check_layer0`); then one JSON line per variant: the best per-step wall ms over `--repeats` runs (host clock after
 a synchronize), the byte bound of a step, and the card's name and power
-limit.
+limit; then one more per variant with a step's device time under
+torch.profiler (`device_per_step`: every kernel of one chain run, and the
+attention kernel's own share).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -185,6 +188,31 @@ def probe(kv, seq: int = 1500, iters: int = 8, repeats: int = 3) -> List[dict]:
     return records
 
 
+# the attention kernel of each variant, by a part of its name
+KERNEL_NAME = {"inline_int8": None, "sqa_int8_k6": "Int8KV", "v3_av8": "sqa_v3_kernel",
+               "v3_avbf16": "sqa_v3_kernel"}
+
+
+def device_per_step(kv, seq: int = 1500, iters: int = 8) -> List[dict]:
+    """Per variant, the device ms of one step: every kernel of a profiled
+    chain run (after a warm-up run), and the attention kernel's alone (the
+    inline variant has none), per step."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_sqa_time import device_us
+
+    layers, batch, heads, dhead, _ = kv[0].shape
+    x0 = first_query(batch, heads, dhead)
+    records = []
+    for impl, (fn, _) in layer_fns(seq).items():
+        every = device_us(lambda i: chain(fn, x0, kv, iters), 1, None)
+        own = (device_us(lambda i: chain(fn, x0, kv, iters), 1, KERNEL_NAME[impl])
+               if KERNEL_NAME[impl] else [])
+        records.append({"impl": impl, "per_step_device_ms": sum(every) / 1e3 / iters,
+                        "per_step_kernel_device_ms": sum(own) / 1e3 / iters,
+                        "kernel_launches_profiled": len(own), "card": card()})
+    return records
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=24)
@@ -207,6 +235,8 @@ def main() -> int:
                           "mean_abs_err": err.mean().item()}), flush=True)
     for record in check_layer0(kv, args.seq) + probe(kv, args.seq, args.iters,
                                                        args.repeats):
+        print(json.dumps(record), flush=True)
+    for record in device_per_step(kv, args.seq, args.iters):
         print(json.dumps(record), flush=True)
     return 0
 
