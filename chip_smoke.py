@@ -51,6 +51,15 @@ Phases (each raises, so the script exits non-zero, on failure):
      greedy and beam 2; tokens and segments must be equal, and static equal
      to continuous; a StreamingTranscriber fed 8 s in 1 s chunks: events
      equal;
+     word timestamps: transcribe of 50 s without and with
+     hallucination_silence_threshold (2.0 s), and transcribe_batch of the
+     three clips under both schedulers, greedy and beam 2, each with word
+     timestamps: words (text, tokens, start, end) equal, probabilities
+     within 1e-5, K1's causal mode launched by every alignment forward;
+     conversion without JAX (`convert.main`): an openai-layout .pt (fp32)
+     and an HF directory (bf16 model.safetensors, generation_config.json
+     with alignment heads) made from the tiny model, loaded back on the
+     card by load_model: every leaf equal, the heads read back;
      the flash wrapper's gradients against autograd through the plain
      attention; fp32 training CPU against card (four micro-steps with
      accumulation, a cosine schedule and trainable="^decoder", then two
@@ -66,12 +75,17 @@ Phases (each raises, so the script exits non-zero, on failure):
      batch of 4 windows at 224 tokens, then 1 at 64, then language ID),
      transcribe of ~70 s, serve_batch (six requests, static scheduler with
      the bf16 cache, continuous with the int8 cache, then beam 2 under the
-     continuous scheduler with the int8 cache), the HTTP server in-process
-     twice (static, then continuous with beam 2: readiness, four concurrent
-     requests micro-batched with a /stream beside them, the OpenAI routes,
-     /detect, a word-timestamps error, /metrics), a two-stream
-     MultiStreamTranscriber, the CLI on a 35 s WAV (two 224-token windows)
-     and the CLI's --stream on a 7 s WAV (streams decode with a bf16
+     continuous scheduler with the int8 cache), word timestamps (transcribe
+     of ~70 s with hallucination_silence_threshold 2.0, and transcribe_batch
+     of the six requests under the continuous scheduler with the int8
+     cache: every segment carries words inside the audio, in order), the
+     HTTP server in-process twice (static, then continuous with beam 2:
+     readiness, four concurrent requests micro-batched with a /stream
+     beside them, word timestamps on /transcribe and as verbose_json words,
+     the OpenAI routes, /detect, /metrics), a two-stream
+     MultiStreamTranscriber, the CLI on a 35 s WAV (two 224-token windows,
+     with --word-timestamps --max-line-width 42 --highlight-words) and the
+     CLI's --stream on a 7 s WAV (streams decode with a bf16
      cross-KV and cache, as in JAX: K4, K1 and K3 only). The batch-1 decode is shortened
      from 224 to 64 tokens;
   7. the decode step's profile: 5 large-v3 B=4 steps at a 224-token horizon
@@ -93,8 +107,9 @@ per encoder layer per encode, n_text_layer K3 launches per single-token
 step over a bf16 cache, n_text_layer K6 launches per single-token step
 with int8 cross-KV and as many again with an int8 self-cache; in training
 one K1 launch per encoder layer and one K1-causal launch per decoder layer
-per forward, and as many again for each rematerialised recompute. No main
-path runs K5: Whisper's attention never spans more than 1536 keys. K2 runs
+per forward, and as many again for each rematerialised recompute; with
+word timestamps one K1-causal launch per decoder layer per alignment
+forward (and K1 for each window encoded again). No main path runs K5: Whisper's attention never spans more than 1536 keys. K2 runs
 only in its probe chain, layers x steps per chain run. The server's paths
 are counted after their requests are done: the counters add up across the
 server's threads.
@@ -311,18 +326,28 @@ def causal_pairs(t: int) -> int:
 
 def check_flash_causal(fa) -> list:
     """K1's causal mode and K5 (Tk > 1536, one CUDA kernel) against their
-    plain version on the same inputs; timed at the decoder's (4,448,20,64)
-    causal and at (2,2048,20,64) non-causal and causal, beside
-    scaled_dot_product_attention(is_causal=...) as the library column.
-    Returns the two JSON records."""
+    plain version on the same inputs, K1's causal mode also at the word
+    pass's token buckets with padded rows, bf16 and fp32; timed at the
+    decoder's (4,448,20,64) causal and at (2,2048,20,64) non-causal and
+    causal, beside scaled_dot_product_attention(is_causal=...) as the
+    library column. Returns the two JSON records."""
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = [((4, 448, 20), True, "K1-causal"), ((2, 37, 20), True, "K1-causal"),
              ((1, 130, 20), True, "K1-causal"), ((2, 2048, 20), False, "K5"),
              ((2, 2048, 20), True, "K5")]
+    # the word-timestamp pass's shapes: (1..4, T_bucket, 20, 64), the rows
+    # past each batch row's token count eot padding (one row repeated, as
+    # the eot token's embedding is)
+    cases += [((b, t, 20), True, "K1-causal", valid) for b, t, valid in (
+        (1, 32, [19]), (4, 32, [17, 29, 31, 32]), (4, 64, [1, 33, 61, 64]),
+        (2, 256, [129, 230]))]
     worst = {"K1-causal": 0.0, "K5": 0.0}
     timed = {}
-    for (b, t, h), causal, which in cases:
+    for (b, t, h), causal, which, *valid in cases:
         base = [torch.randn(b, t, h, 64, generator=g, device="cuda") for _ in range(3)]
+        for x in base:
+            for row, n in enumerate(valid[0] if valid else ()):
+                x[row, n:] = torch.randn(h, 64, generator=g, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (x.to(dtype) for x in base)
             out = fa.flash_attention(q, k, v, causal=causal)
@@ -1046,6 +1071,201 @@ def fp32_parity(wt, fa, mk, si):
         raise AssertionError(f"fp32 streaming parity failed: {events}")
 
 
+def words_key(segments):
+    return [[(w["word"], w["start"], w["end"]) for w in s.get("words", [])]
+            for s in segments]
+
+
+def word_probs_err(a, b) -> float:
+    """Largest difference of word probabilities between two results with
+    the same words."""
+    return max((abs(x["probability"] - y["probability"])
+                for sa, sb in zip(a, b)
+                for x, y in zip(sa.get("words", []), sb.get("words", []))),
+               default=0.0)
+
+
+def word_parity(wt, fa):
+    """fp32 word timestamps of the tiny model (head dim 64), CPU against
+    card: transcribe of 50 s without and with hallucination_silence_threshold
+    (2.0 s), and
+    transcribe_batch of three clips under both schedulers, greedy and beam
+    2 (int8 caches). Segments and words (text, tokens, start, end) equal,
+    probabilities within 1e-5; on the card the alignment forwards run K1's
+    causal mode, one launch per decoder layer."""
+    from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    cpu = wt.build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    quiet = dict(no_speech_threshold=None, logprob_threshold=None,
+                 compression_ratio_threshold=None)
+
+    def compare(name, on_card, on_cpu, causal):
+        equal = (segments_key(on_card) == segments_key(on_cpu)
+                 and words_key(on_card) == words_key(on_cpu))
+        err = word_probs_err(on_card, on_cpu)
+        n_words = sum(len(w) for w in words_key(on_card))
+        log(f"fp32 word parity ({name}): {len(on_card)} segments, {n_words} words, "
+            f"card == cpu {equal}, probability max_abs {err:.3e}; K1-causal "
+            f"launches {causal}")
+        if not equal or err > 1e-5 or n_words == 0 or causal == 0 \
+                or causal % cfg.n_text_layer:
+            raise AssertionError(f"fp32 word parity failed ({name}):\n{on_cpu}\n"
+                                 f"vs\n{on_card}")
+
+    speech = speechy(50, 11)
+    for threshold in (None, 2.0):
+        kw = dict(language="en", temperature=0.0, sample_len=12, word_timestamps=True,
+                  hallucination_silence_threshold=threshold, **quiet)
+        before = fa.launches_causal
+        on_card = gpu.transcribe(speech, **kw)["segments"]
+        compare(f"transcribe 50 s, hallucination_silence_threshold {threshold}",
+                on_card, cpu.transcribe(speech, **kw)["segments"],
+                fa.launches_causal - before)
+
+    t = time.perf_counter()
+    clips = [speechy(20, 21), speechy(35, 22), speechy(50, 23)]
+    for scheduler in ("static", "continuous"):
+        for beam in (None, 2):
+            opts = wt.ServeOptions(
+                batch_size=2, language="en", temperature=(0.0,), sample_len=12,
+                beam_size=beam, scheduler=scheduler, chunk_tokens=8,
+                kv_dtype="int8", cache_dtype="int8", word_timestamps=True, **quiet)
+            before = fa.launches_causal
+            on_card = wt.transcribe_batch(gpu, clips, opts)
+            causal = fa.launches_causal - before
+            for i, (a, b) in enumerate(zip(on_card, wt.transcribe_batch(cpu, clips, opts))):
+                compare(f"transcribe_batch {scheduler}, beam {beam}, request {i}",
+                        a["segments"], b["segments"], causal)
+    log(f"fp32 word parity of transcribe_batch: {time.perf_counter() - t:.3f} s "
+        f"(card and cpu)")
+
+
+# openai/whisper state-dict names -> HuggingFace's, applied in order
+HF_NAMES = [(r"^(encoder|decoder)\.blocks\.", r"model.\1.layers."),
+            (r"\.attn\.query\.", ".self_attn.q_proj."),
+            (r"\.attn\.key\.", ".self_attn.k_proj."),
+            (r"\.attn\.value\.", ".self_attn.v_proj."),
+            (r"\.attn\.out\.", ".self_attn.out_proj."),
+            (r"\.cross_attn\.query\.", ".encoder_attn.q_proj."),
+            (r"\.cross_attn\.key\.", ".encoder_attn.k_proj."),
+            (r"\.cross_attn\.value\.", ".encoder_attn.v_proj."),
+            (r"\.cross_attn\.out\.", ".encoder_attn.out_proj."),
+            (r"\.attn_ln\.", ".self_attn_layer_norm."),
+            (r"\.cross_attn_ln\.", ".encoder_attn_layer_norm."),
+            (r"\.mlp\.0\.", ".fc1."), (r"\.mlp\.2\.", ".fc2."),
+            (r"\.mlp_ln\.", ".final_layer_norm."),
+            (r"^encoder\.(conv\d)", r"model.encoder.\1"),
+            (r"^encoder\.ln_post", "model.encoder.layer_norm"),
+            (r"^decoder\.token_embedding", "model.decoder.embed_tokens"),
+            (r"^decoder\.positional_embedding$", "model.decoder.embed_positions.weight"),
+            (r"^decoder\.ln\.", "model.decoder.layer_norm.")]
+
+
+def openai_state_dict(tree) -> dict:
+    """A JAX-layout tree of tensors under openai/whisper's names."""
+    sd = {}
+    att = {"q": "query", "k": "key", "v": "value", "out": "out"}
+
+    def linear(name, p, i):
+        sd[f"{name}.weight"] = p["w"][i].T.contiguous()
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"][i]
+
+    for side in ("encoder", "decoder"):
+        blocks = tree[side]["blocks"]
+        for i in range(blocks["attn"]["q"]["w"].shape[0]):
+            pre = f"{side}.blocks.{i}"
+            for sub in ("attn", "cross_attn") if side == "decoder" else ("attn",):
+                for k, n in att.items():
+                    linear(f"{pre}.{sub}.{n}", blocks[sub][k], i)
+            for ln in ("attn_ln", "cross_attn_ln", "mlp_ln"):
+                if ln in blocks:
+                    sd[f"{pre}.{ln}.weight"] = blocks[ln]["scale"][i]
+                    sd[f"{pre}.{ln}.bias"] = blocks[ln]["bias"][i]
+            linear(f"{pre}.mlp.0", blocks["mlp"]["fc1"], i)
+            linear(f"{pre}.mlp.2", blocks["mlp"]["fc2"], i)
+    for conv in ("conv1", "conv2"):
+        sd[f"encoder.{conv}.weight"] = tree["encoder"][conv]["w"].permute(2, 1, 0).contiguous()
+        sd[f"encoder.{conv}.bias"] = tree["encoder"][conv]["b"]
+    for name, p in (("encoder.ln_post", tree["encoder"]["ln_post"]),
+                    ("decoder.ln", tree["decoder"]["ln"])):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"], p["bias"]
+    sd["decoder.token_embedding.weight"] = tree["decoder"]["token_embedding"]
+    sd["decoder.positional_embedding"] = tree["decoder"]["positional_embedding"]
+    return sd
+
+
+def convert_slice():
+    """`python -m openai_whisper_coreml_tpu_torch.convert` on this machine,
+    which has no JAX: an openai-layout `.pt` (fp32) and an HF directory
+    (bf16 `model.safetensors` and `generation_config.json` with alignment
+    heads), both made from the tiny model, become `.safetensors` files that
+    `load_model` reads back on the card: every leaf equals the source (the
+    HF one rounded to bf16) and the HF heads reach model.alignment_heads."""
+    import re
+
+    from openai_whisper_coreml_tpu_torch import config as tconfig
+    from openai_whisper_coreml_tpu_torch import convert
+    from openai_whisper_coreml_tpu_torch.params import params_tree
+    from openai_whisper_coreml_tpu_torch.utils.checkpoint import (flatten_params,
+                                                                  write_safetensors)
+
+    name = "chip-smoke-tiny"
+    cfg = tconfig.tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    tconfig.CONFIGS[name] = cfg
+    import openai_whisper_coreml_tpu_torch as wt
+
+    tree = params_tree(wt.build_model(cfg, dtype=torch.float32, seed=5, device="cpu"))
+    sd = openai_state_dict(tree)
+    # three pairs: two would read as a (2, 2) mask, in both packages (a
+    # fault shared with the reference: the mask shape is tested first)
+    heads = [[1, 1], [1, 0], [0, 1]]
+    want_heads = np.zeros((2, cfg.n_text_head), bool)
+    for layer, head in heads:
+        want_heads[layer, head] = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            pt = os.path.join(tmp, "model.pt")
+            torch.save({"dims": {"n_audio_state": 128}, "model_state_dict": sd}, pt)
+            hf = os.path.join(tmp, "hf")
+            os.makedirs(hf)
+            hf_sd = {}
+            for k, v in sd.items():
+                for pat, rep in HF_NAMES:
+                    k = re.sub(pat, rep, k)
+                hf_sd[k] = v.to(torch.bfloat16)
+            hf_sd["proj_out.weight"] = hf_sd["model.decoder.embed_tokens.weight"]
+            write_safetensors(os.path.join(hf, "model.safetensors"), hf_sd,
+                              {"format": "pt"})
+            with open(os.path.join(hf, "generation_config.json"), "w") as f:
+                json.dump({"alignment_heads": heads}, f)
+            for src, dtype, want_h in ((pt, torch.float32, None),
+                                       (hf, torch.bfloat16, want_heads)):
+                out = os.path.join(tmp, "out.safetensors")
+                t = time.perf_counter()
+                if convert.main(["--input", src, "--model", name, "--output", out]) != 0:
+                    raise AssertionError(f"convert {src} failed")
+                seconds = time.perf_counter() - t
+                model = wt.load_model(name, checkpoint=out, dtype=torch.float32,
+                                      device="cuda")
+                got = flatten_params(params_tree(model))
+                ref = flatten_params(tree)
+                bad = [k for k in ref if not torch.equal(
+                    got[k].cpu(), ref[k].to(dtype).float())]
+                heads_ok = (model.alignment_heads is None if want_h is None else
+                            np.array_equal(model.alignment_heads, want_h))
+                log(f"convert {os.path.basename(src)} ({dtype}): {len(ref)} leaves, "
+                    f"{len(bad)} differ, alignment heads read back {heads_ok}, "
+                    f"{seconds:.3f} s")
+                if bad or set(got) != set(ref) or not heads_ok:
+                    raise AssertionError(f"convert {src}: leaves {bad[:5]}, heads "
+                                         f"{model.alignment_heads}")
+    finally:
+        del tconfig.CONFIGS[name]
+
+
 def host_copy(x):
     """A copy on the host of a tensor, or of the tensors in a dict."""
     if isinstance(x, dict):
@@ -1366,10 +1586,13 @@ def finetune_slice(kernels) -> None:
 TOTALS: dict = {}
 
 
-# kernels of a path that never launch there: K1's causal mode and K5 run only
-# in teacher forcing (training), K5 only beyond 1536 keys (never in Whisper);
-# K2 only in its probe chain (no decode path calls it, as in JAX)
+# kernels of a path that never launch there: K1's causal mode runs only in
+# teacher forcing (training, and the word-timestamp pass), K5 only beyond
+# 1536 keys (never in Whisper); K2 only in its probe chain (no decode path
+# calls it, as in JAX)
 SERVING_IDLE = ("flash_attention_causal", "flash_attention_online", "sqa_v3")
+# a path with word timestamps launches K1's causal mode too
+WORDS_IDLE = ("flash_attention_online", "sqa_v3")
 
 
 def reset_counts(kernels) -> None:
@@ -1390,8 +1613,12 @@ def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
     ("encoder_layers", "causal_layers") and its log-mel calls itself."""
     from openai_whisper_coreml_tpu_torch.models.whisper import WhisperModel
 
-    calls = {"encode": 0, "encoder_layers": 0, "causal_layers": 0, "log_mel": 0}
+    from openai_whisper_coreml_tpu_torch import timing
+
+    calls = {"encode": 0, "encoder_layers": 0, "causal_layers": 0, "log_mel": 0,
+             "align_forwards": 0}
     encode, log_mel = WhisperModel.encode, WhisperModel.log_mel
+    teacher_forced = timing._teacher_forced
 
     def counting_encode(self, mel):
         bump(calls, "encode")
@@ -1402,7 +1629,14 @@ def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
         bump(calls, "log_mel")
         return log_mel(self, audio)
 
+    def counting_teacher_forced(model, *args, **kwargs):
+        # the word-timestamp pass: one K1-causal launch per decoder layer
+        bump(calls, "align_forwards")
+        bump(calls, "causal_layers", by=model.cfg.n_text_layer)
+        return teacher_forced(model, *args, **kwargs)
+
     WhisperModel.encode, WhisperModel.log_mel = counting_encode, counting_log_mel
+    timing._teacher_forced = counting_teacher_forced
     reset_counts(kernels)
     t = time.perf_counter()
     try:
@@ -1411,6 +1645,7 @@ def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
             torch.cuda.synchronize()
     finally:
         WhisperModel.encode, WhisperModel.log_mel = encode, log_mel
+        timing._teacher_forced = teacher_forced
     seconds = time.perf_counter() - t
     launches = read_counts(kernels)
     expected = {"flash_attention": calls["encoder_layers"],
@@ -1471,7 +1706,10 @@ def serve_slice(wt, model, kernels):
         raise AssertionError("non-finite large-v3 logits")
 
 
-def check_segments(result, cfg, duration):
+def check_segments(result, cfg, duration, words=False):
+    """Schema, ids, times and tokens of a result. With words a segment's
+    start moves to its first word's (openai), so starts need not grow
+    within a window; seeks still do."""
     segs = result["segments"]
     if not segs or set(result) < {"text", "segments", "language", "duration"}:
         raise AssertionError(f"transcribe result without segments: {result}")
@@ -1482,7 +1720,8 @@ def check_segments(result, cfg, duration):
     for prev, s in zip([None] + segs, segs):
         if not (0 <= s["start"] <= s["end"] <= duration + 30):
             raise AssertionError(f"segment times out of order: {s}")
-        if prev is not None and (s["seek"] < prev["seek"] or s["start"] < prev["start"]):
+        if prev is not None and (s["seek"] < prev["seek"]
+                                 or (s["start"] < prev["start"] and not words)):
             raise AssertionError(f"segments not monotone: {prev} then {s}")
         if not all(0 <= t < cfg.n_vocab for t in s["tokens"]):
             raise AssertionError(f"tokens outside the vocab: {s['tokens']}")
@@ -1537,10 +1776,10 @@ def serve_batch_slice(wt, model, kernels):
             ("serve_batch continuous beam", dict(scheduler="continuous", beam_size=2,
                                                  cache_dtype="int8", chunk_tokens=16),
              SERVING_IDLE + ("sqa_self",)))
-    # 32-token windows (48 before the beam run joined): with 48 the third
-    # run kept the script near ten minutes
+    # 24-token windows (48 before the beam run joined, 32 before the word
+    # paths did): the script stays near half its time limit on a slow host
     for name, kw, idle in runs:
-        opts = wt.ServeOptions(batch_size=4, sample_len=32, language="en",
+        opts = wt.ServeOptions(batch_size=4, sample_len=24, language="en",
                                temperature=(0.0, 0.4), kv_dtype="int8", **kw)
         with main_path(name, kernels, cfg.n_text_layer, idle=idle) as calls:
             results = wt.transcribe_batch(model, audios, opts)
@@ -1552,6 +1791,68 @@ def serve_batch_slice(wt, model, kernels):
             f"{sorted({seg['temperature'] for r in results for seg in r['segments']})}")
 
 
+def check_words(result, name):
+    """Every segment carries words; each word has start <= end inside the
+    audio, starts do not decrease within a segment, and the result has
+    words at all. Returns their count."""
+    n = 0
+    for s in result["segments"]:
+        if "words" not in s:
+            raise AssertionError(f"{name}: a segment without words: {s}")
+        prev = 0.0
+        for w in s["words"]:
+            if not (prev <= w["start"] <= w["end"] <= result["duration"] + 1e-6
+                    and 0.0 <= w["probability"] <= 1.0):
+                raise AssertionError(f"{name}: word out of order or outside the "
+                                     f"audio: {w} in {s}")
+            prev = w["start"]
+            n += 1
+    if n == 0:
+        raise AssertionError(f"{name}: no words")
+    return n
+
+
+def words_slice(wt, model, kernels):
+    """Word timestamps at large-v3 (int8 weights, bf16): transcribe of 70 s
+    with hallucination_silence_threshold=2.0 (the words on each window's own
+    features), then transcribe_batch of the six requests under the
+    continuous scheduler with the int8 cache (each request's windows
+    encoded again, batch_size at a time, and aligned together). Each
+    alignment forward launches K1's causal mode once per decoder layer,
+    counted exactly; K1 counts the re-encodes."""
+    cfg = model.cfg
+    audio = speechy(70, 3)
+    with main_path("transcribe words", kernels, cfg.n_text_layer,
+                   idle=WORDS_IDLE + ("sqa_self",)) as calls:
+        result = model.transcribe(audio, kv_dtype="int8", temperature=(0.0, 0.4),
+                                  sample_len=16, word_timestamps=True,
+                                  hallucination_silence_threshold=2.0)
+    check_segments(result, cfg, 70.0, words=True)
+    n = check_words(result, "transcribe words")
+    if calls["align_forwards"] == 0 or calls["encode"] < 2:
+        raise AssertionError(f"transcribe words: {calls}")
+    log(f"large-v3 transcribe of 70 s with words: {calls['encode'] - 1} windows, "
+        f"{calls['align_forwards']} alignment forwards, {len(result['segments'])} "
+        f"segments, {n} words")
+
+    seconds = (10, 20, 35, 50, 65, 70)
+    audios = [speechy(sec, 30 + i) for i, sec in enumerate(seconds)]
+    opts = wt.ServeOptions(batch_size=4, sample_len=16, language="en",
+                           temperature=(0.0, 0.4), kv_dtype="int8",
+                           scheduler="continuous", cache_dtype="int8",
+                           chunk_tokens=16, word_timestamps=True)
+    with main_path("serve_batch continuous words", kernels, cfg.n_text_layer,
+                   idle=WORDS_IDLE + ("sqa_self",)) as calls:
+        results = wt.transcribe_batch(model, audios, opts)
+    words = []
+    for r, sec in zip(results, seconds):
+        check_segments(r, cfg, float(sec), words=True)
+        words.append(check_words(r, "serve_batch continuous words"))
+    log(f"serve_batch continuous with words: {calls['encode']} encoder calls, "
+        f"{calls['align_forwards']} alignment forwards, {calls['steps']} steps; "
+        f"words per request {words}")
+
+
 def cli_slice(kernels):
     from openai_whisper_coreml_tpu_torch import cli
     from openai_whisper_coreml_tpu_torch.config import get_config
@@ -1561,12 +1862,13 @@ def cli_slice(kernels):
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "clip.wav")
         save_wav(wav, speechy(35, 5))  # two windows: the seek runs on the card
-        with main_path("cli", kernels, cfg.n_text_layer) as calls:
+        with main_path("cli", kernels, cfg.n_text_layer, idle=WORDS_IDLE) as calls:
             rc = cli.main([wav, "--model", "large-v3", "--quantize", "int8",
                            "--kv-dtype", "int8", "--dtype", "bfloat16",
                            "--temperature-increment-on-fallback", "0",
                            "--output-format", "all", "--language", "en",
-                           "--output-dir", tmp])
+                           "--word-timestamps", "--max-line-width", "42",
+                           "--highlight-words", "--output-dir", tmp])
         if rc != 0:
             raise AssertionError(f"cli.main returned {rc}")
         sizes = {}
@@ -1575,14 +1877,19 @@ def cli_slice(kernels):
             sizes[fmt] = os.path.getsize(path)
         with open(os.path.join(tmp, "clip.json"), encoding="utf-8") as f:
             result = json.load(f)
-        with open(os.path.join(tmp, "clip.vtt"), encoding="utf-8") as f:
-            vtt = f.read()
-    check_segments(result, cfg, 35.0)
-    if not vtt.startswith("WEBVTT") or min(sizes.values()) == 0:
+        subtitles = {}
+        for fmt in ("srt", "vtt"):
+            with open(os.path.join(tmp, f"clip.{fmt}"), encoding="utf-8") as f:
+                subtitles[fmt] = f.read()
+    check_segments(result, cfg, 35.0, words=True)
+    n_words = check_words(result, "cli")
+    if (not subtitles["vtt"].startswith("WEBVTT") or min(sizes.values()) == 0
+            or not all("<u>" in text for text in subtitles.values())):
         raise AssertionError(f"cli output files: {sizes}")
     if calls["encode"] < 2:
         raise AssertionError(f"cli: {calls['encode']} windows encoded, expected 2")
-    log(f"cli wrote {sizes} bytes; {len(result['segments'])} segments")
+    log(f"cli wrote {sizes} bytes; {len(result['segments'])} segments, {n_words} "
+        f"words, {calls['align_forwards']} alignment forwards")
 
 
 def wav_bytes(audio: np.ndarray) -> bytes:
@@ -1623,8 +1930,9 @@ def server_slice(model, kernels, name, options, idle):
     (`WhisperHTTPServer(model, port=0, batch_size=4, warmup=True)`):
     /readyz 503 then 200; four concurrent /transcribe WAV POSTs of 10-35 s,
     micro-batched into fewer batches than requests, with a /stream of 6 s
-    in flight beside them; a word-granularity request answered with its
-    error; /v1/audio/transcriptions as json and srt, /detect, /metrics in
+    in flight beside them; word timestamps on /transcribe and as
+    verbose_json words on /v1/audio/transcriptions (K1's causal mode);
+    /v1/audio/transcriptions as json and srt, /detect, /metrics in
     Prometheus form; then stop(). Launches are read after the requests."""
     from openai_whisper_coreml_tpu_torch.serve_http import WhisperHTTPServer
 
@@ -1679,10 +1987,21 @@ def server_slice(model, kernels, name, options, idle):
             if batches >= len(audios):
                 raise AssertionError(f"{name}: {batches} batches for {len(audios)} "
                                      f"requests: not micro-batched")
-            code, raw = http(srv, "/transcribe?word_timestamps=1", wav_bytes(audios[0]))
-            if code != 500 or b"timing.py" not in raw:
-                raise AssertionError(f"{name}: word timestamps answered {code} {raw!r}")
             short = wav_bytes(audios[0])
+            code, raw = http(srv, "/transcribe?word_timestamps=1", short)
+            if code != 200:
+                raise AssertionError(f"{name}: word timestamps answered {code} {raw!r}")
+            worded = json.loads(raw)
+            n_words = check_words(worded, f"{name} /transcribe words")
+            code, raw = http(srv, "/v1/audio/transcriptions", *multipart(
+                {"language": "en", "response_format": "verbose_json",
+                 "timestamp_granularities[]": "word"}, short))
+            verbose = json.loads(raw) if code == 200 else {}
+            if code != 200 or verbose.get("words") != [
+                    w for seg in verbose["segments"] for w in seg["words"]]:
+                raise AssertionError(f"{name}: verbose_json words answered {code} "
+                                     f"{raw[:300]!r}")
+            check_words(verbose, f"{name} verbose_json words")
             outs = {}
             for fmt in ("json", "srt"):
                 code, outs[fmt] = http(srv, "/v1/audio/transcriptions",
@@ -1709,6 +2028,7 @@ def server_slice(model, kernels, name, options, idle):
     snap = srv.metrics.snapshot()
     log(f"{name}: warmup {warm_s:.3f} s; four /transcribe and a 6 s /stream in "
         f"{batch_s:.3f} s wall, {batches:.0f} batch(es); stream lines {len(lines)}; "
+        f"words {n_words} on /transcribe, {len(verbose['words'])} in verbose_json; "
         f"batch latency {snap['summaries']['batch_latency_s']}; {calls['steps']} "
         f"single-token steps; counters {snap['counters']}")
 
@@ -2027,6 +2347,8 @@ def main() -> int:
                check_sqa_self(ss), check_sqa_int8(si), check_sqa_v3(sv, si)]
     check_flash_grad(fa)
     fp32_parity(wt, fa, mk, si)
+    word_parity(wt, fa)
+    convert_slice()
     train_parity(fa)
     sqa_v3_probe_slice(kernels)
 
@@ -2040,13 +2362,15 @@ def main() -> int:
     serve_slice(wt, model, kernels)
     transcribe_slice(model, kernels)
     serve_batch_slice(wt, model, kernels)
-    # no quality gates: no window of the random model is skipped as silence
-    served = {"language": "en", "kv_dtype": "int8", "sample_len": 32,
+    words_slice(wt, model, kernels)
+    # no quality gates: no window of the random model is skipped as silence;
+    # 16-token windows (32 before the word requests joined)
+    served = {"language": "en", "kv_dtype": "int8", "sample_len": 16,
               "temperature": (0.0,), "no_speech_threshold": None}
-    server_slice(model, kernels, "server static", served, SERVING_IDLE)
+    server_slice(model, kernels, "server static", served, WORDS_IDLE)
     server_slice(model, kernels, "server continuous beam",
                  {**served, "scheduler": "continuous", "beam_size": 2,
-                  "chunk_tokens": 16}, SERVING_IDLE)
+                  "chunk_tokens": 16}, WORDS_IDLE)
     multistream_slice(model, kernels)
     profile_step(model, ss, si)
     del model

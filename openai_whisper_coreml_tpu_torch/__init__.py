@@ -4,12 +4,14 @@ log-mel frontend (Hopper log-mel kernel) -> encoder (Hopper flash-attention
 kernel) -> int8 or bf16 cross-KV -> greedy, sampled or beam KV-cached
 decoding over a bf16 or int8 self-attention cache (Hopper single-query
 attention kernels on every single-token step) with the timestamp rules,
-language ID, long-form `transcribe`, batched serving (`transcribe_batch`,
-static and continuous schedulers, beam under both), streaming
+language ID, long-form `transcribe`, word timestamps (`timing.py`, on
+every entry point), batched serving (`transcribe_batch`, static and
+continuous schedulers, beam under both), streaming
 (`StreamingTranscriber`, `MultiStreamTranscriber`), the HTTP server
-(`python -m openai_whisper_coreml_tpu_torch.serve_http`) and the CLI
-(`python -m openai_whisper_coreml_tpu_torch`). Imports torch, never JAX;
-the JAX package is the reference it is tested against.
+(`python -m openai_whisper_coreml_tpu_torch.serve_http`), the CLI
+(`python -m openai_whisper_coreml_tpu_torch`) and checkpoint conversion
+(`python -m openai_whisper_coreml_tpu_torch.convert`). Imports torch,
+never JAX; the JAX package is the reference it is tested against.
 """
 
 __version__ = "0.1.0"

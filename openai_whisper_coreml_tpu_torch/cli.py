@@ -5,10 +5,14 @@ Files of any length in, transcripts out (txt/srt/vtt/tsv/json), or language
 ID with `--task lang-id`, or simulated real-time streaming with `--stream`
 (1 s chunks through `stream.StreamingTranscriber`, confirmed text printed
 as it comes; `--kv-dtype` and `--cache-dtype` apply to its decodes). The
-flags are the JAX package's; `--checkpoint` reads a `.safetensors` file.
-Those whose module is not ported yet raise with a message naming
-ROADMAP.md: `--draft-model`, `--word-timestamps`, `--profile-dir` and
-`--tensor-parallel` above 1.
+flags are the JAX package's; `--checkpoint` reads a `.safetensors` file
+(`python -m openai_whisper_coreml_tpu_torch.convert` writes one).
+`--word-timestamps` attaches per-word timings (`timing.py`), which the
+subtitle options (`--max-line-width`, `--max-line-count`,
+`--max-words-per-line`, `--highlight-words`) and
+`--hallucination-silence-threshold` act on. Flags whose module is not
+ported yet raise with a message naming ROADMAP.md: `--draft-model`,
+`--profile-dir` and `--tensor-parallel` above 1.
 Left out are the JAX CLI's `--batch`, which it never reads, and
 `--draft-checkpoint` and `--spec-k`, which only `--draft-model` reads. The model is built on the
 card; without one, loading it raises.
@@ -60,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="punctuation merged with the PREVIOUS word "
                         "(word timestamps)")
     p.add_argument("--word-timestamps", action="store_true",
-                   help="per-word timings (not ported yet)")
+                   help="attach per-word timings via cross-attention DTW")
     p.add_argument("--stream", action="store_true",
                    help="simulate real-time streaming over the file, "
                         "printing confirmed text incrementally")
@@ -115,7 +119,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 _UNPORTED = (
     ("draft_model", "--draft-model (speculative.py)"),
-    ("word_timestamps", "--word-timestamps (timing.py)"),
     ("profile_dir", "--profile-dir (device traces)"),
 )
 
@@ -211,6 +214,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             initial_prompt=args.initial_prompt,
             carry_initial_prompt=args.carry_initial_prompt,
             without_timestamps=args.without_timestamps,
+            word_timestamps=args.word_timestamps,
             prepend_punctuations=args.prepend_punctuations,
             append_punctuations=args.append_punctuations,
             clip_timestamps=args.clip_timestamps,

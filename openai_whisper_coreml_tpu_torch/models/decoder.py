@@ -19,15 +19,18 @@ version only with `self_kernel=True`.
 Unlike JAX, `decode_step` writes this step's K/V into the cache in place
 and returns the same cache object.
 
-Teacher forcing (`decoder_forward`) takes `flash=True` from training: its
-causal self-attention then runs the flash kernel's causal mode on the card
-(JAX's `decoder_block_full` never passes flash; the kernel's own docstring
-names teacher forcing as the causal mode's use). Serving never sets it.
+Teacher forcing (`decoder_forward`) takes `flash=True` from training and
+from the word-timestamp pass (`timing.py`, which also reads each layer's
+cross-attention probabilities through `visit`): its causal self-attention
+then runs the flash kernel's causal mode on the card (JAX's
+`decoder_block_full` never passes flash; the kernel's own docstring names
+teacher forcing as the causal mode's use). The decode loops never set it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -205,9 +208,11 @@ def precompute_cross(decoder: TextDecoder, audio_features: torch.Tensor,
 
 
 def attention_dmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None, *,
+                     return_weights: bool = False):
     """q (B, T, H, D) against d-major k, v (B, H, D, S); mask broadcastable
-    to (B, H, T, S), True = keep. Returns (B, T, H, D); fp32 softmax."""
+    to (B, H, T, S), True = keep. Returns (B, T, H, D); fp32 softmax.
+    `return_weights` also returns the softmax (B, H, T, S) fp32."""
     scale = q.shape[-1] ** -0.25
     qs = (q * scale).to(q.dtype)
     ks = (k * scale).to(k.dtype)
@@ -216,6 +221,8 @@ def attention_dmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask, logits, -1e30)
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhts,bhds->bthd", weights.to(v.dtype).float(), v.float())
+    if return_weights:
+        return out.to(q.dtype), weights
     return out.to(q.dtype)
 
 
@@ -370,32 +377,43 @@ def decode_step(
 
 def decoder_block_full(blk: DecoderBlock, x: torch.Tensor,
                        cross_k: torch.Tensor, cross_v: torch.Tensor,
-                       flash: bool = False) -> torch.Tensor:
-    """Teacher-forcing block: full causal self-attention (no cache)."""
+                       flash: bool = False,
+                       visit: Optional[Callable[[torch.Tensor], None]] = None
+                       ) -> torch.Tensor:
+    """Teacher-forcing block: full causal self-attention (no cache);
+    `visit` gets the cross-attention probabilities (B, H, T, S) fp32."""
     x = x + self_attention(layer_norm(x, blk.attn_ln), blk.attn, causal=True,
                            flash=flash)
     p = blk.cross_attn
     q = split_heads(p.q(layer_norm(x, blk.cross_attn_ln)), p.n_head)
-    x = x + p.out(merge_heads(attention_dmajor(q, cross_k, cross_v)))
+    out, weights = attention_dmajor(q, cross_k, cross_v, return_weights=True)
+    if visit is not None:
+        visit(weights)
+    x = x + p.out(merge_heads(out))
     return x + blk.mlp(layer_norm(x, blk.mlp_ln))
 
 
 def decoder_forward(decoder: TextDecoder, tokens: torch.Tensor,
                     audio_features: Optional[torch.Tensor] = None,
                     cross_kv: Optional[CrossKV] = None, *,
-                    remat: bool = False, flash: bool = False) -> torch.Tensor:
+                    remat: bool = False, flash: bool = False,
+                    visit: Optional[Callable[[int, torch.Tensor], None]] = None
+                    ) -> torch.Tensor:
     """Teacher-forcing forward over a full sequence -> logits (B, T, vocab).
 
     `remat` recomputes each block in the backward pass (the cross K/V are
     computed once, outside the blocks, as in JAX); `flash` runs the causal
-    self-attention through `ops.flash_attention`."""
+    self-attention through `ops.flash_attention`; `visit(l, w)` gets layer
+    l's cross-attention probabilities (B, H, T, S) fp32 (the word-timestamp
+    pass; not with `remat`, whose backward would visit again)."""
     if cross_kv is None:
         if audio_features is None:
             raise ValueError("need audio_features or cross_kv")
         cross_kv = precompute_cross_kv(decoder, audio_features)
     x = embed_tokens(decoder, tokens, 0)
     for l, blk in enumerate(decoder.blocks):
-        args = (blk, x, cross_kv.k[l], cross_kv.v[l], flash)
+        args = (blk, x, cross_kv.k[l], cross_kv.v[l], flash,
+                None if visit is None else functools.partial(visit, l))
         if remat:
             x = checkpoint(decoder_block_full, *args, use_reentrant=False)
         else:

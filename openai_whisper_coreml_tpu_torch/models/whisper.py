@@ -6,6 +6,7 @@ import dataclasses
 import os
 from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -18,13 +19,18 @@ from .encoder import AudioEncoder
 
 class WhisperModel(nn.Module):
     """Encoder + decoder weights with the JAX package's entry points:
-    log_mel, encode, logits, detect_language, decode and transcribe."""
+    log_mel, encode, logits, detect_language, decode and transcribe.
+    `alignment_heads`: the (n_text_layer, n_text_head) bool mask of the
+    heads word timestamps align with, from a checkpoint's metadata; None
+    takes `timing.default_alignment_heads`."""
 
-    def __init__(self, cfg: WhisperConfig, params: Mapping[str, Any]):
+    def __init__(self, cfg: WhisperConfig, params: Mapping[str, Any],
+                 alignment_heads: Optional[np.ndarray] = None):
         super().__init__()
         self.cfg = cfg
         self.encoder = AudioEncoder(cfg, params["encoder"])
         self.decoder = dec_mod.TextDecoder(cfg, params["decoder"])
+        self.alignment_heads = alignment_heads
 
     @property
     def device(self) -> torch.device:
@@ -118,13 +124,15 @@ def load_model(name: str, *, dtype: Optional[torch.dtype] = None, seed: int = 0,
                device: torch.device | str | None = None) -> WhisperModel:
     """A named Whisper size: random weights from `seed` (see build_model),
     or the weights of a `.safetensors` checkpoint written by either
-    package's `save_params` (`tools/convert.py`, fine-tuning).
+    package's `save_params` (`python -m openai_whisper_coreml_tpu_torch.convert`,
+    `tools/convert.py`, fine-tuning).
 
     An int8 checkpoint (`quantized: int8` in its metadata) loads as it is:
     quantize="int8" is then satisfied, and another quantize raises. The
     JAX package's orbax training-state directories cannot be read here
     (orbax does not run on the card): a directory raises. Alignment heads
-    in the metadata are not read until word timestamps are ported."""
+    in the metadata (`alignment_heads`, any format
+    `timing.load_alignment_heads` reads) become `model.alignment_heads`."""
     if checkpoint is None:
         return build_model(get_config(name), dtype=dtype, seed=seed,
                            quantize=quantize, device=device)
@@ -133,14 +141,21 @@ def load_model(name: str, *, dtype: Optional[torch.dtype] = None, seed: int = 0,
     if os.path.isdir(checkpoint) or not checkpoint.endswith(".safetensors"):
         raise ValueError(
             f"{checkpoint!r}: the port loads .safetensors checkpoints only; "
-            "JAX orbax train-state directories do not load into it (convert "
-            "with the JAX package's utils.checkpoint.save_params)")
+            "convert openai .pt files and HF directories with python -m "
+            "openai_whisper_coreml_tpu_torch.convert (JAX orbax train-state "
+            "directories do not load into it)")
     cfg = get_config(name)
     device, dtype = _device_and_dtype(device, dtype)
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantization {quantize!r}")
     params = load_params(checkpoint, cfg=cfg, dtype=dtype)
-    prequantized = read_metadata(checkpoint).get("quantized")
+    meta = read_metadata(checkpoint)
+    alignment_heads = None
+    if meta.get("alignment_heads"):
+        from ..timing import load_alignment_heads
+
+        alignment_heads = load_alignment_heads(meta["alignment_heads"], cfg)
+    prequantized = meta.get("quantized")
     if prequantized:
         if quantize not in (None, prequantized):
             raise ValueError(f"checkpoint is pre-quantized ({prequantized}); "
@@ -151,7 +166,7 @@ def load_model(name: str, *, dtype: Optional[torch.dtype] = None, seed: int = 0,
         from ..quantize import quantize_params
 
         params = quantize_params(params)
-    return WhisperModel(cfg, params)
+    return WhisperModel(cfg, params, alignment_heads=alignment_heads)
 
 
 def _to_device(tree: Mapping[str, Any], device: torch.device) -> dict:

@@ -1,5 +1,6 @@
-"""Parameter trees: random initialisation, the JAX pytree both ways, and
-JAX paths for the model's parameters.
+"""Parameter trees: random initialisation, conversion from the public
+checkpoint layouts, the JAX pytree both ways, and JAX paths for the
+model's parameters.
 
 The port keeps the JAX package's parameter layout as its interchange format
 (`openai_whisper_coreml_tpu/params.py`): a nested dict whose per-layer
@@ -17,11 +18,18 @@ Every module parameter has a JAX path (`jax_path`): the parameter's name
 with the layer index dropped and "/" for ".", e.g.
 `decoder.blocks.3.attn.q.w` -> `decoder/blocks/attn/q/w`. Training matches
 its `trainable` pattern against these paths, as JAX does.
+
+`params_from_openai_state_dict` and `params_from_hf_state_dict` turn an
+openai/whisper `.pt` state dict (`encoder.blocks.0.attn.query.weight`) or
+a HuggingFace `WhisperForConditionalGeneration` one
+(`model.encoder.layers.0.self_attn.q_proj.weight`) into that tree, as the
+JAX package's converters do (`convert.py` runs them).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -94,6 +102,115 @@ def init_params(cfg: WhisperConfig, generator: torch.Generator,
             "ln": ln(nt),
         },
     }
+
+
+def _t(x) -> torch.Tensor:
+    """A state-dict value (tensor or numpy, any float type) as fp32 on the
+    CPU."""
+    return torch.as_tensor(x).detach().cpu().float()
+
+
+def _linear(sd: Mapping[str, Any], prefix: str, bias: bool = True) -> Params:
+    out = {"w": _t(sd[f"{prefix}.weight"]).T}  # torch stores (out, in)
+    if bias:
+        out["b"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def _ln(sd: Mapping[str, Any], prefix: str) -> Params:
+    return {"scale": _t(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _conv(sd: Mapping[str, Any], prefix: str) -> Params:
+    # (out, in, kernel) in both public layouts -> (kernel, in, out)
+    return {"w": _t(sd[f"{prefix}.weight"]).permute(2, 1, 0),
+            "b": _t(sd[f"{prefix}.bias"])}
+
+
+def _stack_layers(layers: list) -> Params:
+    """Per-layer trees -> one tree with a leading layer axis."""
+    return {k: (_stack_layers([layer[k] for layer in layers])
+                if isinstance(layers[0][k], Mapping)
+                else torch.stack([layer[k] for layer in layers]))
+            for k in layers[0]}
+
+
+def _cast(tree: Mapping[str, Any], dtype: torch.dtype) -> Params:
+    return {k: (_cast(v, dtype) if isinstance(v, Mapping)
+                else v.to(dtype).contiguous())
+            for k, v in tree.items()}
+
+
+def params_from_openai_state_dict(cfg: WhisperConfig, sd: Mapping[str, Any],
+                                  dtype: torch.dtype = torch.float32) -> Params:
+    """An openai/whisper checkpoint's "model_state_dict" -> the JAX-layout
+    tree of CPU tensors in `dtype`."""
+    def attn(prefix):
+        return {"q": _linear(sd, f"{prefix}.query"),
+                "k": _linear(sd, f"{prefix}.key", bias=False),
+                "v": _linear(sd, f"{prefix}.value"),
+                "out": _linear(sd, f"{prefix}.out")}
+
+    def mlp(prefix):
+        return {"fc1": _linear(sd, f"{prefix}.0"), "fc2": _linear(sd, f"{prefix}.2")}
+
+    enc_layers = [{"attn": attn(f"encoder.blocks.{i}.attn"),
+                   "attn_ln": _ln(sd, f"encoder.blocks.{i}.attn_ln"),
+                   "mlp": mlp(f"encoder.blocks.{i}.mlp"),
+                   "mlp_ln": _ln(sd, f"encoder.blocks.{i}.mlp_ln")}
+                  for i in range(cfg.n_audio_layer)]
+    dec_layers = [{"attn": attn(f"decoder.blocks.{i}.attn"),
+                   "attn_ln": _ln(sd, f"decoder.blocks.{i}.attn_ln"),
+                   "cross_attn": attn(f"decoder.blocks.{i}.cross_attn"),
+                   "cross_attn_ln": _ln(sd, f"decoder.blocks.{i}.cross_attn_ln"),
+                   "mlp": mlp(f"decoder.blocks.{i}.mlp"),
+                   "mlp_ln": _ln(sd, f"decoder.blocks.{i}.mlp_ln")}
+                  for i in range(cfg.n_text_layer)]
+    return _cast({
+        "encoder": {"conv1": _conv(sd, "encoder.conv1"),
+                    "conv2": _conv(sd, "encoder.conv2"),
+                    "blocks": _stack_layers(enc_layers),
+                    "ln_post": _ln(sd, "encoder.ln_post")},
+        "decoder": {"token_embedding": _t(sd["decoder.token_embedding.weight"]),
+                    "positional_embedding": _t(sd["decoder.positional_embedding"]),
+                    "blocks": _stack_layers(dec_layers),
+                    "ln": _ln(sd, "decoder.ln")},
+    }, dtype)
+
+
+_HF_PREFIX = re.compile(r"^(model\.|proj_out\.)")
+
+# HuggingFace names (after _HF_PREFIX) -> openai/whisper's, applied in order
+_HF_TO_OPENAI = [
+    (r"^(encoder|decoder)\.layers\.", r"\1.blocks."),
+    (r"\.self_attn_layer_norm\.", ".attn_ln."),
+    (r"\.encoder_attn_layer_norm\.", ".cross_attn_ln."),
+    (r"\.final_layer_norm\.", ".mlp_ln."),
+    (r"\.self_attn\.", ".attn."), (r"\.encoder_attn\.", ".cross_attn."),
+    (r"\.q_proj\.", ".query."), (r"\.k_proj\.", ".key."),
+    (r"\.v_proj\.", ".value."), (r"\.out_proj\.", ".out."),
+    (r"\.fc1\.", ".mlp.0."), (r"\.fc2\.", ".mlp.2."),
+    (r"^encoder\.layer_norm\.", "encoder.ln_post."),
+    (r"^decoder\.layer_norm\.", "decoder.ln."),
+    (r"^decoder\.embed_tokens\.", "decoder.token_embedding."),
+    (r"^decoder\.embed_positions\.weight$", "decoder.positional_embedding"),
+]
+
+
+def params_from_hf_state_dict(cfg: WhisperConfig, sd: Mapping[str, Any],
+                              dtype: torch.dtype = torch.float32) -> Params:
+    """A HuggingFace WhisperForConditionalGeneration / WhisperModel state
+    dict -> the JAX-layout tree of CPU tensors in `dtype`. HF's weights are
+    openai's under other names: they are renamed and converted as openai's
+    (keys HF has and openai has not, such as `proj_out.weight`, the tied
+    output projection, are not read)."""
+    renamed = {}
+    for key, val in sd.items():
+        key = _HF_PREFIX.sub("", key)
+        for pattern, repl in _HF_TO_OPENAI:
+            key = re.sub(pattern, repl, key)
+        renamed[key] = val
+    return params_from_openai_state_dict(cfg, renamed, dtype)
 
 
 def _to_tensor(x) -> torch.Tensor:

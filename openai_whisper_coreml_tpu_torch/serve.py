@@ -19,13 +19,16 @@ reassembles one openai-schema result per request:
     (`serve_cb_beam.py`), requeueing gate failures into the sampled engine
     for the t>0 rungs;
   * the per-window no-speech skip, the energy-VAD gate and `initial_prompt`
-    on each request's first window.
+    on each request's first window;
+  * word timestamps (`word_timestamps=True`): after the seek chains are
+    verified, each request's decoded windows are encoded again in batches
+    of `batch_size` and aligned by `timing.find_word_alignment_batch`,
+    whichever scheduler decoded them.
 
 Batches are not padded to `batch_size` (JAX pads them to reuse one compiled
-graph; PyTorch runs eagerly). Left out of `ServeOptions`: `spec_k`,
-`spec_fallback` and `spec_fallback_threshold`, which act only with a draft
-model (speculative decoding is not ported). `word_timestamps=True` raises
-NotImplementedError: it needs `timing.py` (ROADMAP.md, Queue 1).
+graph; PyTorch runs eagerly), the word-timestamp encodes included. Left out
+of `ServeOptions`: `spec_k`, `spec_fallback` and `spec_fallback_threshold`,
+which act only with a draft model (speculative decoding is not ported).
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ class ServeOptions:
     cache_dtype: str = "bf16"  # "int8": quantised self-attention cache
     # openai suppress_tokens semantics ("-1" = the non-speech set)
     suppress_tokens: Union[str, Sequence[int]] = "-1"
-    word_timestamps: bool = False  # needs timing.py: raises
+    # per-word timings on every segment (timing.py): the verified windows
+    # are encoded again in batches and aligned after decoding
+    word_timestamps: bool = False
     # conditions each request's FIRST window (openai initial_prompt with
     # conditioning off: batched serving never conditions on previous text)
     initial_prompt: Optional[str] = None
@@ -80,10 +85,10 @@ class ServeOptions:
         # a scalar temperature is the one-rung ladder
         if isinstance(self.temperature, (int, float)):
             self.temperature = (float(self.temperature),)
-        if self.word_timestamps:
-            raise NotImplementedError(
-                "word_timestamps in transcribe_batch needs timing.py, not "
-                "ported to PyTorch yet (ROADMAP.md, Queue 1)")
+        if self.word_timestamps and self.without_timestamps:
+            raise ValueError(
+                "word_timestamps requires timestamps (without_timestamps "
+                "must be False)")
         if self.scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
 
@@ -245,7 +250,7 @@ def transcribe_batch(
             break
 
     return _reassemble(model, arrays, [walk(rid)[0] for rid in range(len(arrays))],
-                       options)
+                       options, mels, content)
 
 
 def _decode_windows_static(model, windows: List[_Window],
@@ -351,14 +356,18 @@ def _window_skipped(r: DecodingResult, options: ServeOptions) -> bool:
                      and r.avg_logprob > options.logprob_threshold))
 
 
-def _reassemble(model, arrays, chains, options) -> List[Dict[str, Any]]:
+def _reassemble(model, arrays, chains, options, mels: List[torch.Tensor],
+                content: List[int]) -> List[Dict[str, Any]]:
     """Stitch each request's verified seek chain into one result.
 
     chains[rid]: ordered (seek, DecodingResult, segment_size) entries from
-    the speculative-seek walk, the windows transcribe() would decode."""
+    the speculative-seek walk, the windows transcribe() would decode.
+    mels[rid] and content[rid] (its content frames) feed the word-timestamp
+    pass."""
     out: List[Dict[str, Any]] = []
     for rid, arr in enumerate(arrays):
         segs: List[Segment] = []
+        align_jobs: List[tuple] = []
         language_votes: Dict[str, float] = {}
         for seek, r, seg_size in chains[rid]:
             if r.language_probs:
@@ -370,14 +379,20 @@ def _reassemble(model, arrays, chains, options) -> List[Dict[str, Any]]:
                 language_votes[r.language] = language_votes.get(r.language, 0.0) + 1.0
             if _window_skipped(r, options):
                 continue
-            segs.extend(_segments_from_result(
+            win_segs = _segments_from_result(
                 model.cfg, r, seek / FRAMES_PER_SECOND, seek,
-                segment_duration=seg_size / FRAMES_PER_SECOND))
+                segment_duration=seg_size / FRAMES_PER_SECOND)
+            segs.extend(win_segs)
+            if options.word_timestamps and win_segs:
+                align_jobs.append((win_segs, seek, seg_size))
         for i, s in enumerate(segs):
             s.id = i
         language = (options.language
                     or (max(language_votes, key=language_votes.get)
                         if language_votes else "en"))
+        if align_jobs:
+            _align_words(model, align_jobs, mels[rid], content[rid], language,
+                         options)
         out.append({
             "text": "".join(s.text for s in segs),
             "segments": [s.to_dict() for s in segs],
@@ -385,6 +400,40 @@ def _reassemble(model, arrays, chains, options) -> List[Dict[str, Any]]:
             "duration": len(arr) / SAMPLE_RATE,
         })
     return out
+
+
+def _align_words(model, align_jobs, mel: torch.Tensor, content_frames: int,
+                 language: str, options: ServeOptions) -> None:
+    """The word-timestamp pass of one request: its decoded windows are
+    encoded again, `batch_size` at a time (the decode rounds keep no
+    features), and the windows of each batch are aligned together
+    (`timing.find_word_alignment_batch`: full windows share one forward per
+    token bucket). The boundary heuristics, which carry the last speech
+    time from window to window, run in order."""
+    from .timing import add_word_timestamps_to_segments, find_word_alignment_batch
+    from .tokenizer import get_tokenizer
+
+    lang = language if model.cfg.multilingual else None
+    tok = get_tokenizer(model.cfg, language=lang)
+    last_speech = 0.0
+    for start in range(0, len(align_jobs), options.batch_size):
+        chunk = align_jobs[start:start + options.batch_size]
+        feats = model.encode(torch.stack([_window_mel(mel, seek, content_frames)
+                                          for _, seek, _ in chunk]))
+        jobs = [([t for seg in win_segs for t in seg.tokens if t < tok.eot],
+                 feats[i], seg_size)
+                for i, (win_segs, _, seg_size) in enumerate(chunk)]
+        aligned = find_word_alignment_batch(model, tok, jobs, language=lang)
+        for i, (win_segs, seek, seg_size) in enumerate(chunk):
+            if not jobs[i][0]:
+                continue
+            add_word_timestamps_to_segments(
+                model, tok, win_segs, feats[i], num_frames=seg_size,
+                time_offset=seek / FRAMES_PER_SECOND, language=lang,
+                last_speech_timestamp=last_speech, timings=aligned[i])
+            ends = [w["end"] for s in win_segs for w in (s.words or [])]
+            if ends:  # as transcribe() carries it from window to window
+                last_speech = ends[-1]
 
 
 def _segments_from_result(cfg, r: DecodingResult, time_offset: float,

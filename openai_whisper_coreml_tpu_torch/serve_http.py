@@ -22,9 +22,11 @@ GET  /readyz       -> 200 {"ready": true} once the startup warmup batch has
 
 Requests are micro-batched: a background worker drains the queue every
 `batch_window_ms` and decodes up to `batch_size` 30 s windows together
-through serve.transcribe_batch. A failing batch (for example
-word_timestamps, whose timing.py is not ported) answers its requests with
-the error and the server keeps serving.
+through serve.transcribe_batch. Word timestamps (`?word_timestamps=1`,
+or `timestamp_granularities[]=word` with `verbose_json`) put `words` on
+each segment, and the OpenAI route's answer carries them as `words`. A
+failing batch answers its requests with the error and the server keeps
+serving.
 
 Threads: the batch worker decodes while handler threads run /detect and
 /stream decodes of their own on the same model. PyTorch does not serialise

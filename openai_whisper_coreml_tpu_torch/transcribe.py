@@ -7,11 +7,13 @@ as the next window's prompt, and retry a window at higher temperature when
 its output is degenerate (the temperature ladder: greedy or beam at t=0,
 sampled `best_of` candidates above). The mel is computed once for the whole
 file, on the model's device (the K4 kernel on the card), and each window is
-encoded once; the ladder reuses its features.
+encoded once; the ladder and the word-timestamp pass (`timing.py`) reuse
+its features. With word timestamps the window seeks from the last word's
+end, and `hallucination_silence_threshold` skips the silence around
+segments that look like hallucinations (openai's rules).
 
-Word timestamps (and with them `hallucination_silence_threshold`'s silence
-skipping) and speculative decoding with a draft model are not ported yet:
-they need `timing.py` and `speculative.py` (ROADMAP.md, Queue 1).
+Speculative decoding with a draft model is not ported yet: it needs
+`speculative.py` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -109,7 +111,7 @@ def window_segment_spans(tokens, ts_begin: int, time_offset: float,
 # openai's hallucination heuristics (transcribe.py v20231117): a word is
 # anomalous when improbable or implausibly short/long; a segment is a likely
 # hallucination when its first non-punctuation words are mostly anomalous.
-# They read word timings, so they act once word timestamps are ported.
+# They read word timings.
 _ANOMALY_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
 
@@ -190,10 +192,6 @@ def transcribe(
     decode_options: the remaining DecodingOptions fields (beam_size,
     best_of, patience, length_penalty, sample_len, kv_dtype, ...).
     """
-    if word_timestamps:
-        raise NotImplementedError(
-            "word_timestamps (and hallucination_silence_threshold with it) "
-            "needs timing.py, not ported to PyTorch yet (ROADMAP.md, Queue 1)")
     if draft_model is not None:
         raise NotImplementedError(
             "draft_model (speculative decoding) needs speculative.py, not "
@@ -339,6 +337,7 @@ def transcribe(
 
     clip_idx = 0
     seek = seek_clips[0][0]
+    last_speech_timestamp = 0.0
 
     while clip_idx < len(seek_clips):
         if progress_callback is not None:
@@ -354,6 +353,7 @@ def transcribe(
                 seek = seek_clips[clip_idx][0]
             continue
         time_offset = seek / FRAMES_PER_SECOND
+        window_end_time = (seek + N_FRAMES) / FRAMES_PER_SECOND
         segment_size = min(N_FRAMES, content_frames - seek,
                            seek_clip_end - seek)
         segment_duration = segment_size / FRAMES_PER_SECOND
@@ -394,6 +394,91 @@ def transcribe(
                 no_speech_prob=result.no_speech_prob,
             ))
         seek += seek_advance(tokens, ts_begin, segment_size)
+        is_ts = tokens >= ts_begin
+        single_timestamp_ending = (
+            len(is_ts) >= 2 and not is_ts[-2] and is_ts[-1])
+
+        if word_timestamps and current_segments:
+            from .timing import add_word_timestamps_to_segments
+
+            # the window's own features: no second encode
+            add_word_timestamps_to_segments(
+                model, tokenizer, current_segments, segment_feats,
+                num_frames=segment_size, time_offset=time_offset,
+                language=language,
+                prepend_punctuations=prepend_punctuations,
+                append_punctuations=append_punctuations,
+                last_speech_timestamp=last_speech_timestamp)
+            if not single_timestamp_ending:
+                last_word_end = _get_end(current_segments)
+                if last_word_end is not None and last_word_end > time_offset:
+                    # the last word's end is a better seek point than the
+                    # last timestamp token (openai)
+                    seek = round(last_word_end * FRAMES_PER_SECOND)
+
+            # skip the silence around likely hallucinations (openai's rules)
+            if hallucination_silence_threshold is not None:
+                threshold = hallucination_silence_threshold
+                if not single_timestamp_ending:
+                    last_word_end = _get_end(current_segments)
+                    if (last_word_end is not None
+                            and last_word_end > time_offset):
+                        remaining = window_end_time - last_word_end
+                        if remaining > threshold:
+                            seek = round(last_word_end * FRAMES_PER_SECOND)
+                        else:
+                            seek = previous_seek + segment_size
+
+                # a hallucinated first segment: drop the window and decode
+                # again past the leading silence
+                first_segment = _next_words_segment(current_segments)
+                if (first_segment is not None
+                        and _is_segment_anomaly(first_segment)):
+                    gap = first_segment.start - time_offset
+                    if gap > threshold:
+                        seek = previous_seek + max(
+                            1, round(gap * FRAMES_PER_SECOND))
+                        continue
+
+                # a hallucination with silence (or more hallucinations) on
+                # both sides: seek to it, drop it and what follows
+                hal_last_end = last_speech_timestamp
+                for si, segment in enumerate(current_segments):
+                    if not segment.words:
+                        continue
+                    if _is_segment_anomaly(segment):
+                        next_seg = _next_words_segment(
+                            current_segments[si + 1:])
+                        if next_seg is not None:
+                            hal_next_start = next_seg.words[0]["start"]
+                        else:
+                            hal_next_start = time_offset + segment_duration
+                        silence_before = (
+                            segment.start - hal_last_end > threshold
+                            or segment.start < threshold
+                            or segment.start - time_offset < 2.0)
+                        silence_after = (
+                            hal_next_start - segment.end > threshold
+                            or _is_segment_anomaly(next_seg)
+                            or window_end_time - segment.end < 2.0)
+                        if silence_before and silence_after:
+                            seek = round(
+                                max(time_offset + 1, segment.start)
+                                * FRAMES_PER_SECOND)
+                            if content_duration - segment.end < threshold:
+                                seek = content_frames
+                            del current_segments[si:]
+                            break
+                    hal_last_end = segment.end
+
+            last_word_end = _get_end(current_segments)
+            if last_word_end is not None:
+                last_speech_timestamp = last_word_end
+
+        if seek <= previous_seek:
+            # a word-end seek that rounds back to the window's start would
+            # decode the same window again forever: advance fully instead
+            seek = previous_seek + segment_size
 
         if verbose:
             for seg in current_segments:
@@ -406,6 +491,7 @@ def transcribe(
             if seg.start == seg.end or not seg.text.strip():
                 seg.text = ""
                 seg.tokens = []
+                seg.words = [] if word_timestamps else None
 
         all_segments.extend(current_segments)
         for seg in current_segments:

@@ -4,12 +4,14 @@ Parameter checkpoints are flat safetensors files whose keys are the
 "/"-joined paths of the JAX parameter tree (`decoder/blocks/attn/q/w`,
 layers stacked on axis 0), with the JAX package's JSON metadata:
 `format: whisper-tpu-v1`, the model name, and `quantized: int8` when the
-tree holds int8 `w_q` leaves. bf16 is stored as fp32. The files are
-written and read here by hand (an 8-byte little-endian header length, a
-JSON header with `__metadata__` and each tensor's dtype, shape and byte
+tree holds int8 `w_q` leaves. `save_params` stores bf16 as fp32. The files
+are written and read here by hand (an 8-byte little-endian header length,
+a JSON header with `__metadata__` and each tensor's dtype, shape and byte
 range, then the raw little-endian bytes), so no `safetensors` package is
 needed; the JAX package's `save_params` / `load_params` read and write the
-same files.
+same files. The reader and writer also take BF16 tensors (HF and
+fine-tuned checkpoints come in bf16): numpy has no bf16, so their bytes
+travel as 16-bit integers and come back as `torch.bfloat16` tensors.
 
 Training state for an exact resume (`save_train_state`) is a directory
 holding one `torch.save` file of {params tree, optimizer state (moments,
@@ -36,6 +38,7 @@ _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
               "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
               "U8": np.uint8, "BOOL": np.bool_}
 _ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+BF16 = "BF16"
 
 
 def flatten_params(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -72,20 +75,32 @@ def _to_numpy(x) -> np.ndarray:
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
-def write_safetensors(path: str, tensors: Mapping[str, np.ndarray],
+def _st_array(name: str, x) -> Tuple[str, np.ndarray]:
+    """(safetensors dtype name, little-endian contiguous array) of a numpy
+    array or a tensor; a bf16 tensor's bits as int16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return BF16, x.view(torch.int16).numpy().astype("<i2", copy=False)
+        x = x.numpy()
+    a = np.ascontiguousarray(x)
+    a = a.astype(a.dtype.newbyteorder("<"), copy=False)
+    if a.dtype not in _ST_NAMES:
+        raise TypeError(f"{name}: dtype {a.dtype} has no safetensors name")
+    return _ST_NAMES[a.dtype], a
+
+
+def write_safetensors(path: str, tensors: Mapping[str, Any],
                       metadata: Mapping[str, str]) -> None:
-    """Write a safetensors file: header length (u64 LE), JSON header padded
-    with spaces to 8 bytes, then each tensor's little-endian bytes in
-    header order."""
+    """Write a safetensors file of numpy arrays or tensors (bf16 ones as
+    BF16): header length (u64 LE), JSON header padded with spaces to 8
+    bytes, then each tensor's little-endian bytes in header order."""
     header: Dict[str, Any] = {"__metadata__": dict(metadata)}
     arrays = []
     offset = 0
     for name in sorted(tensors):
-        a = np.ascontiguousarray(tensors[name])
-        a = a.astype(a.dtype.newbyteorder("<"), copy=False)
-        if a.dtype not in _ST_NAMES:
-            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors name")
-        header[name] = {"dtype": _ST_NAMES[a.dtype], "shape": list(a.shape),
+        dtype, a = _st_array(name, tensors[name])
+        header[name] = {"dtype": dtype, "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
         arrays.append(a)
         offset += a.nbytes
@@ -106,18 +121,23 @@ def _read_header(f) -> Tuple[int, Dict[str, Any]]:
     return 8 + n, json.loads(f.read(n))
 
 
-def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
-    """(name -> numpy array, metadata) of a safetensors file."""
+def read_safetensors(path: str) -> Tuple[Dict[str, Any], Dict[str, str]]:
+    """(name -> numpy array, metadata) of a safetensors file; BF16 tensors
+    come back as `torch.bfloat16` tensors (numpy has no bf16)."""
     with open(path, "rb") as f:
         start, header = _read_header(f)
     meta = header.pop("__metadata__", None) or {}
     data = np.memmap(path, dtype=np.uint8, mode="r", offset=start)
-    out = {}
+    out: Dict[str, Any] = {}
     for name, info in header.items():
+        lo, hi = info["data_offsets"]
+        if info["dtype"] == BF16:
+            bits = np.array(data[lo:hi].view("<i2")).reshape(info["shape"])
+            out[name] = torch.from_numpy(bits).view(torch.bfloat16)
+            continue
         if info["dtype"] not in _ST_DTYPES:
             raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which "
-                             f"neither package writes")
-        lo, hi = info["data_offsets"]
+                             f"the reader does not take")
         dtype = np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<")
         out[name] = np.array(data[lo:hi].view(dtype)).reshape(info["shape"])
     return out, meta
@@ -156,7 +176,7 @@ def load_params(path: str, *, cfg=None, dtype: torch.dtype = torch.float32) -> P
     raw, _ = read_safetensors(path)
     flat = {}
     for k, v in raw.items():
-        t = torch.from_numpy(v)
+        t = torch.as_tensor(v)
         if k.endswith("/w_q"):
             flat[k] = t.to(torch.int8)
         elif k.endswith("/scale") and k[: -len("scale")] + "w_q" in raw:

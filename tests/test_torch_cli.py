@@ -135,13 +135,43 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,what", [
     (["--draft-model", "tiny"], "speculative.py"),
-    (["--word-timestamps"], "timing.py"),
     (["--profile-dir", "trace"], "profile"),
     (["--tensor-parallel", "2"], "parallel"),
 ])
 def test_cli_unported_flags_raise(flags, what):
     with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
         tcli.main(["a.wav"] + flags)
+
+
+@pytest.mark.parametrize("fmt", ["srt", "vtt", "json"])
+def test_cli_word_timestamps_write_what_the_jax_cli_writes(models, wav, tmp_path,
+                                                          monkeypatch, fmt):
+    """`--word-timestamps` with the word-level subtitle options: srt and vtt
+    byte-identical to JAX's CLI, json's words equal (probabilities within
+    1e-5)."""
+    jm, tm = models
+    monkeypatch.setattr("openai_whisper_coreml_tpu.load_model", lambda *a, **k: jm)
+    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model",
+                        lambda *a, **k: tm)
+    args = [wav, "--language", "en", "--output-format", fmt,
+            "--temperature-increment-on-fallback", "0", "--word-timestamps",
+            "--max-line-width", "42", "--highlight-words",
+            "--logprob-threshold=-1e9", "--no-speech-threshold", "1.1"]
+    assert jcli.main(args + ["--output-dir", str(tmp_path / "j")]) == 0
+    assert tcli.main(args + ["--output-dir", str(tmp_path / "t")]) == 0
+    ours = (tmp_path / "t" / f"clip.{fmt}").read_text()
+    ref = (tmp_path / "j" / f"clip.{fmt}").read_text()
+    if fmt != "json":
+        assert ours == ref and "<u>" in ours
+        return
+    ours, ref = json.loads(ours), json.loads(ref)
+    words = [w for s in ours["segments"] for w in s["words"]]
+    assert words and len(ours["segments"]) == len(ref["segments"])
+    for o, r in zip(ours["segments"], ref["segments"]):
+        assert [(w["word"], w["start"], w["end"]) for w in o["words"]] == [
+            (w["word"], w["start"], w["end"]) for w in r["words"]]
+        for a, b in zip(o["words"], r["words"]):
+            assert a["probability"] == pytest.approx(b["probability"], abs=1e-5)
 
 
 def test_cli_stream_prints_what_jax_prints(models, tmp_path, monkeypatch, capsys):

@@ -730,6 +730,63 @@ def test_kernel_never_reads_a_batchs_padding_rows_on_card(t, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [32, 64, 128, 256, 512])
+def test_causal_kernel_at_the_alignment_buckets_on_card(t, dtype):
+    """K1's causal mode at the word-timestamp pass's token buckets, 20
+    heads: rows past each batch row's valid length are padding (here huge
+    values, then others); the output matches the plain version, is finite,
+    and its valid rows do not change when the padding does."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(3, t, t, 20, dtype, t)
+    valid = [t // 2 + 1, t - 3, t]
+    outs = []
+    for fill in (30.0, -7.0):
+        for x in (q, k, v):
+            for b, n in enumerate(valid):
+                x[b, n:] = fill
+        _one_counted_launch(q, k, v, True, dtype)
+        outs.append(fa.flash_attention(q, k, v, causal=True))
+    for b, n in enumerate(valid):
+        assert torch.equal(outs[0][b, :n], outs[1][b, :n])
+
+
+@pytest.mark.cuda
+def test_alignment_pass_on_card_matches_cpu():
+    """The batched alignment core of a tiny fp32 model (head dim 64, so K1's
+    causal mode runs) on the card against the CPU: matrix and token
+    probabilities within 1e-5, one causal launch per decoder layer."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from openai_whisper_coreml_tpu_torch import timing
+
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    cpu = build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(3, 1500, 128, generator=g)
+    tokens = torch.randint(0, 50_000, (3, 64), generator=g)
+    t_valid = torch.tensor([20, 63, 64])
+    gather_pos = torch.clamp(3 + torch.arange(64), max=63).expand(3, 64).contiguous()
+    heads = timing.default_alignment_heads(cfg)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = cpu if dev == "cpu" else gpu
+        before = fa.launches_causal
+        out[name] = [x.cpu() for x in timing._alignment_core_batch(
+            model, tokens.to(dev), feats.to(dev), heads, t_valid.to(dev),
+            gather_pos.to(dev), tokens.to(dev), 7)]
+        if dev == "cuda":
+            assert fa.launches_causal - before == cfg.n_text_layer
+    for ours, ref in zip(out["card"], out["cpu"]):
+        assert (ours - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("which", ["quantize_kv_column", "quantize_linear", "ieee_div"])
 def test_quantizers_are_bit_equal_on_card_and_cpu(which):
     """int8 codes and fp32 scales are the same bits on the card as on the

@@ -206,16 +206,19 @@ def test_speculative_seek_repair_matches_jax(monkeypatch):
 
 def test_serve_options_match_jax_but_speculative_fields():
     """The port's ServeOptions are JAX's, with JAX's defaults, less the
-    three fields only a draft model reads; what needs an unported module
-    raises, naming the roadmap, and continuous with beam_size is taken."""
+    three fields only a draft model reads; word timestamps are taken, and
+    refused without timestamps as JAX refuses them, and continuous with
+    beam_size is taken."""
     ours = {f.name: f.default for f in dataclasses.fields(ServeOptions)}
     ref = {f.name: f.default for f in dataclasses.fields(jsv.ServeOptions)}
     assert set(ref) - set(ours) == {"spec_k", "spec_fallback",
                                     "spec_fallback_threshold"}
     assert ours == {k: ref[k] for k in ours}
     assert ServeOptions(temperature=0.4).temperature == (0.4,)
-    with pytest.raises(NotImplementedError, match="timing.py.*ROADMAP"):
-        ServeOptions(word_timestamps=True)
+    assert ServeOptions(word_timestamps=True).word_timestamps
+    for cls in (ServeOptions, jsv.ServeOptions):
+        with pytest.raises(ValueError, match="requires timestamps"):
+            cls(word_timestamps=True, without_timestamps=True)
     # beam under the continuous scheduler is ported (serve_cb_beam.py)
     assert ServeOptions(scheduler="continuous", beam_size=2).beam_size == 2
     with pytest.raises(ValueError, match="scheduler"):

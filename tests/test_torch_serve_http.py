@@ -1,8 +1,7 @@
 """Port HTTP server (`serve_http.py`): the JAX server's tests on the port's
 tiny CPU model (in-process server on a free loopback port, urllib client),
-plus its transcripts against JAX's `transcribe_batch` on the same weights,
-word timestamps answered with their error while the server keeps serving,
-and `main`'s refusals of what is not ported."""
+plus its transcripts and words against JAX's `transcribe_batch` on the
+same weights, and `main`'s refusals of what is not ported."""
 
 import io
 import json
@@ -25,6 +24,7 @@ from openai_whisper_coreml_tpu_torch import serve_http as tsh
 from openai_whisper_coreml_tpu_torch.config import tiny_test_config
 from openai_whisper_coreml_tpu_torch.params import from_jax_params
 from openai_whisper_coreml_tpu_torch.serve_http import WhisperHTTPServer
+from openai_whisper_coreml_tpu_torch.utils.audio_io import decode_wav_bytes
 
 torch.set_num_threads(1)
 
@@ -157,26 +157,38 @@ def test_transcripts_equal_jax_transcribe_batch(models):
                 == [[s[k] for k in keys] for s in theirs["segments"]])
 
 
-def test_word_timestamps_answered_with_error_then_serves(oa_server, rng):
-    """word_timestamps needs timing.py: the request is answered with the
-    error from ServeOptions, counted as a failed batch, and the server goes
-    on serving."""
-    wav = _wav_bytes((0.1 * rng.standard_normal(16000)).astype(np.float32))
+def test_word_timestamps_on_both_routes_match_jax(models, oa_server):
+    """Word timestamps on both routes: /transcribe?word_timestamps=1 puts
+    JAX's words (transcribe_batch on the same audio and options) on each
+    segment, and the OpenAI route with timestamp_granularities[]=word
+    answers verbose_json with the same words, flat and per segment. No
+    batch fails, and the server goes on serving."""
+    jm, _ = models
+    raw = _wav_bytes(_speechy(6, 5))
+    audio = decode_wav_bytes(raw)
+    ref = jsv.transcribe_batch(jm, [audio], jsv.ServeOptions(
+        batch_size=2, language="en", word_timestamps=True, sample_len=6,
+        **NO_GATES))[0]
+    ref_words = [[(w["word"], w["start"], w["end"]) for w in s["words"]]
+                 for s in ref["segments"]]
+    assert any(ref_words)
     failed = oa_server.metrics.counter("batches_failed")
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(oa_server, "/transcribe?language=en&word_timestamps=1", wav)
-    assert e.value.code == 500
-    assert "timing.py" in json.loads(e.value.read())["error"]
+    status, out = _post(oa_server, "/transcribe?language=en&word_timestamps=1", raw)
+    assert status == 200 and out["text"] == ref["text"]
+    assert [[(w["word"], w["start"], w["end"]) for w in s["words"]]
+            for s in out["segments"]] == ref_words
+    for s, r in zip(out["segments"], ref["segments"]):
+        for a, b in zip(s["words"], r["words"]):
+            assert a["probability"] == pytest.approx(b["probability"], abs=1e-5)
     body, headers = _multipart({"language": "en", "response_format": "verbose_json",
-                                "timestamp_granularities[]": ["segment", "word"]}, wav)
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post_raw(oa_server, "/v1/audio/transcriptions", body, headers)
-    assert e.value.code == 500
-    err = json.loads(e.value.read())["error"]
-    assert err["type"] == "server_error" and "timing.py" in err["message"]
-    assert oa_server.metrics.counter("batches_failed") == failed + 2
-    status, out = _post(oa_server, "/transcribe?language=en", wav)
-    assert status == 200 and "segments" in out
+                                "timestamp_granularities[]": ["segment", "word"]}, raw)
+    status, _, body = _post_raw(oa_server, "/v1/audio/transcriptions", body, headers)
+    oa = json.loads(body)
+    assert status == 200 and oa["segments"] == out["segments"]
+    assert oa["words"] == [w for s in out["segments"] for w in s["words"]]
+    assert oa_server.metrics.counter("batches_failed") == failed
+    status, out = _post(oa_server, "/transcribe?language=en", raw)
+    assert status == 200 and "segments" in out and "words" not in out["segments"][0]
 
 
 @pytest.mark.parametrize("argv,what", [

@@ -333,11 +333,22 @@ def test_sampled_ladder_end_to_end(models, speechy_audio):
         assert all(0 <= t < tm.cfg.n_vocab for t in s["tokens"])
 
 
-def test_unported_options_and_bad_audio_raise(models):
-    _, tm = models
+def test_unported_options_and_bad_audio_raise(models, speechy_audio):
+    """Word timestamps are ported: 8 s with them give JAX's segments and
+    words. A draft model (speculative decoding, not ported) and audio that
+    is not mono raise."""
+    jm, tm = models
+    kw = dict(language="en", temperature=0.0, sample_len=8, word_timestamps=True,
+              **QUIET)
+    ours = tm.transcribe(speechy_audio[:8 * SR], **kw)
+    ref = jm.transcribe(speechy_audio[:8 * SR], **kw)
+    _assert_same(ours, ref)
+    assert [[(w["word"], w["start"], w["end"]) for w in s["words"]]
+            for s in ours["segments"]] == [[(w["word"], w["start"], w["end"])
+                                            for w in s["words"]]
+                                           for s in ref["segments"]]
+    assert any(s["words"] for s in ours["segments"])
     audio = np.zeros(SR, np.float32)
-    with pytest.raises(NotImplementedError, match="timing.py"):
-        tm.transcribe(audio, word_timestamps=True)
     with pytest.raises(NotImplementedError, match="speculative.py"):
         tm.transcribe(audio, draft_model=tm)
     with pytest.raises(ValueError, match="mono"):
