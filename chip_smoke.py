@@ -60,6 +60,12 @@ Phases (each raises, so the script exits non-zero, on failure):
      and an HF directory (bf16 model.safetensors, generation_config.json
      with alignment heads) made from the tiny model, loaded back on the
      card by load_model: every leaf equal, the heads read back;
+     speculative decoding in fp32 on the card (TF32 off): the turbo config
+     as target (full widths, 4 text layers) drafted by itself and by a
+     second seed, speculative greedy tokens equal to the plain loop's (a
+     differing row fails unless the target's two candidates lie within
+     1e-4 there, a near-tie of summation order), and the tiny model with
+     int8 cross-KV, card against CPU;
      the flash wrapper's gradients against autograd through the plain
      attention; fp32 training CPU against card (four micro-steps with
      accumulation, a cosine schedule and trainable="^decoder", then two
@@ -73,6 +79,16 @@ Phases (each raises, so the script exits non-zero, on failure):
      alone on four 30 s windows (wall per encode, device-busy time and
      K1's share of it; 32 K1 launches per encode), serve (a
      batch of 4 windows at 224 tokens, then 1 at 64, then language ID),
+     speculative decoding (spec_decode: the same 4 windows at 224 tokens
+     with a large-v3-turbo draft of int8 weights from seed 1, K = 4:
+     tokens per iteration, the acceptance floor and the walls against
+     serve's plain decode, the draft's K3 and K6 launches held exactly to
+     4 layers x (K+1) steps x iterations; the target as its own draft,
+     acceptance at least 0.9, every rejected proposal a near-tie within
+     16 bf16 spacings; a sampled rung at t = 0.4 twice with one
+     seed, equal tokens in the grammar; then transcribe of 20 s with the
+     draft and transcribe_batch of three requests under the static
+     scheduler with model.draft set, the governor's verdict printed),
      transcribe of ~70 s, serve_batch (six requests, static scheduler with
      the bf16 cache, continuous with the int8 cache, then beam 2 under the
      continuous scheduler with the int8 cache), word timestamps (transcribe
@@ -82,10 +98,14 @@ Phases (each raises, so the script exits non-zero, on failure):
      HTTP server in-process twice (static, then continuous with beam 2:
      readiness, four concurrent requests micro-batched with a /stream
      beside them, word timestamps on /transcribe and as verbose_json words,
-     the OpenAI routes, /detect, /metrics), a two-stream
+     the OpenAI routes, /detect, /metrics) and between them the static
+     server once more with the turbo draft on the model (two requests in
+     one speculative batch, the /stream beside them, /metrics holding the
+     speculative counters), a two-stream
      MultiStreamTranscriber, the CLI on a 35 s WAV (two 224-token windows,
-     with --word-timestamps --max-line-width 42 --highlight-words) and the
-     CLI's --stream on a 7 s WAV (streams decode with a bf16
+     with --word-timestamps --max-line-width 42 --highlight-words
+     --draft-model large-v3-turbo --spec-k 4) and the
+     CLI's --stream on a 5 s WAV (streams decode with a bf16
      cross-KV and cache, as in JAX: K4, K1 and K3 only). The batch-1 decode is shortened
      from 224 to 64 tokens;
   7. the decode step's profile: 5 large-v3 B=4 steps at a 224-token horizon
@@ -103,9 +123,11 @@ Phases (each raises, so the script exits non-zero, on failure):
      device-busy share (torch.profiler).
 Each main path starts with every kernel's launch count at 0 and checks it
 against what the path ran: one K4 launch per log-mel call, one K1 launch
-per encoder layer per encode, n_text_layer K3 launches per single-token
-step over a bf16 cache, n_text_layer K6 launches per single-token step
-with int8 cross-KV and as many again with an int8 self-cache; in training
+per encoder layer per encode, one K3 launch per decoder layer of each
+single-token step over a bf16 cache, one K6 launch per decoder layer of
+each single-token step with int8 cross-KV and as many again with an int8
+self-cache (a speculative path steps the draft's 4 layers; its verify
+steps are not single-token and launch none); in training
 one K1 launch per encoder layer and one K1-causal launch per decoder layer
 per forward, and as many again for each rematerialised recompute; with
 word timestamps one K1-causal launch per decoder layer per alignment
@@ -924,23 +946,30 @@ def check_sqa_v3(sv, si) -> dict:
 def counting_steps(calls):
     """Count decode_step calls with T == 1 by the caches they get: bf16
     KVCache (K3 with the loops' self_kernel), QuantKVCache (K6), and
-    QuantCrossKV (K6)."""
+    QuantCrossKV (K6); and the decoder layers those steps ran, since a
+    speculative path steps two models of different depths (each "_layers"
+    count is what the kernel of that cache launches)."""
     from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
 
     step = dec_mod.decode_step
 
     def counting_step(decoder, tokens, cross_kv, cache, *args, **kwargs):
         if tokens.shape[1] == 1:
+            layers = len(decoder.blocks)
             bump(calls, "steps")
             if isinstance(cache, dec_mod.KVCache) and cache.k.dtype == torch.bfloat16:
                 bump(calls, "bf16_self_steps")
+                bump(calls, "bf16_self_layers", by=layers)
             if isinstance(cache, dec_mod.QuantKVCache):
                 bump(calls, "int8_self_steps")
+                bump(calls, "int8_self_layers", by=layers)
             if isinstance(cross_kv, dec_mod.QuantCrossKV):
                 bump(calls, "int8_cross_steps")
+                bump(calls, "int8_cross_layers", by=layers)
         return step(decoder, tokens, cross_kv, cache, *args, **kwargs)
 
-    for key in ("steps", "bf16_self_steps", "int8_self_steps", "int8_cross_steps"):
+    for key in ("steps", "bf16_self_steps", "int8_self_steps", "int8_cross_steps",
+                "bf16_self_layers", "int8_self_layers", "int8_cross_layers"):
         calls.setdefault(key, 0)
     dec_mod.decode_step = counting_step
     try:
@@ -1533,7 +1562,7 @@ def finetune_slice(kernels) -> None:
             record = records[name] = {"profile_step": profile_at.get(name)}
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            with main_path(name, kernels, cfg.n_text_layer,
+            with main_path(name, kernels,
                            idle=("flash_attention_online", "sqa_self", "sqa_int8",
                                  "sqa_v3")
                            ) as calls, finetune_probe(calls, record):
@@ -1570,7 +1599,7 @@ def finetune_slice(kernels) -> None:
             del record["model"], record["start"], model, start, end
             torch.cuda.empty_cache()
         final = out + "-final.safetensors"
-        with main_path("finetuned decode", kernels, cfg.n_text_layer,
+        with main_path("finetuned decode", kernels,
                        idle=SERVING_IDLE + ("sqa_int8",)) as calls:
             model = load_model("large-v3", checkpoint=final, device="cuda")
             result = model.decode(model.log_mel(speechy(30, 50)), language="en",
@@ -1605,7 +1634,7 @@ def read_counts(kernels) -> dict:
 
 
 @contextlib.contextmanager
-def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
+def main_path(name, kernels, idle=SERVING_IDLE):
     """Count the path's kernel launches from 0, its encoder layers, log-mel
     calls and single-token decode steps; on exit check each kernel's count
     against what the path ran, and that every kernel but those in `idle`
@@ -1652,9 +1681,8 @@ def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
                 "flash_attention_causal": calls["causal_layers"],
                 "flash_attention_online": 0,
                 "log_mel": calls["log_mel"],
-                "sqa_self": n_text_layer * calls["bf16_self_steps"],
-                "sqa_int8": n_text_layer * (calls["int8_self_steps"]
-                                            + calls["int8_cross_steps"]),
+                "sqa_self": calls["bf16_self_layers"],
+                "sqa_int8": calls["int8_self_layers"] + calls["int8_cross_layers"],
                 "sqa_v3": 0}
     log(f"[{name}] {seconds:.3f} s wall on {card()}; calls {calls}; "
         f"launches {launches}, expected {expected}")
@@ -1666,15 +1694,26 @@ def main_path(name, kernels, n_text_layer, idle=SERVING_IDLE):
         TOTALS[k] = TOTALS.get(k, 0) + n
 
 
-def serve_slice(wt, model, kernels):
+def serve_audio() -> np.ndarray:
+    """Four 30 s windows of noise: the serve path's and spec_decode's."""
+    return (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
+            ).astype(np.float32)
+
+
+def serve_slice(wt, model, kernels) -> dict:
+    """Returns the batch-4 224-token decode's walls: the whole call's and
+    its decode core's (`speculative.LAST_TIMING`), the plain loop that
+    spec_decode compares with."""
+    from openai_whisper_coreml_tpu_torch import speculative
+
     cfg = model.cfg
-    audio = (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
-             ).astype(np.float32)
+    audio = serve_audio()
     opts = wt.DecodingOptions(language="en", kv_dtype="int8", sample_len=224)
     # shortened from 224 tokens to keep the whole run near four minutes
     short = dataclasses.replace(opts, sample_len=64)
     outputs = []
-    with main_path("serve", kernels, cfg.n_text_layer) as calls:
+    plain = {}
+    with main_path("serve", kernels) as calls:
         for name, fn in (
                 ("decode batch 4", lambda: model.decode(model.log_mel(audio), opts)),
                 ("decode batch 1 (64 tokens)",
@@ -1685,6 +1724,9 @@ def serve_slice(wt, model, kernels):
             outputs.append(fn())
             torch.cuda.synchronize()
             log(f"{name}: {time.perf_counter() - t:.3f} s wall")
+            if not plain:
+                plain = {"wall_s": time.perf_counter() - t,
+                         "core": dict(speculative.LAST_TIMING)}
     if calls["encode"] != 3:
         raise AssertionError(f"serve: {calls['encode']} encoder calls, expected 3")
 
@@ -1704,6 +1746,7 @@ def serve_slice(wt, model, kernels):
                             cfg.transcribe_token]], feats)
     if not (logits.shape == (1, 3, cfg.n_vocab) and torch.isfinite(logits).all()):
         raise AssertionError("non-finite large-v3 logits")
+    return plain
 
 
 def check_segments(result, cfg, duration, words=False):
@@ -1744,7 +1787,7 @@ def transcribe_slice(model, kernels):
 
     tr.decode = recording_decode
     try:
-        with main_path("transcribe", kernels, cfg.n_text_layer) as calls:
+        with main_path("transcribe", kernels) as calls:
             result = model.transcribe(audio, kv_dtype="int8", temperature=(0.0, 0.4),
                                       beam_size=2, best_of=2, sample_len=32)
     finally:
@@ -1776,12 +1819,13 @@ def serve_batch_slice(wt, model, kernels):
             ("serve_batch continuous beam", dict(scheduler="continuous", beam_size=2,
                                                  cache_dtype="int8", chunk_tokens=16),
              SERVING_IDLE + ("sqa_self",)))
-    # 24-token windows (48 before the beam run joined, 32 before the word
-    # paths did): the script stays near half its time limit on a slow host
+    # 16-token windows (24 before the speculative paths joined, 48 before
+    # the beam run did): the script stays near half its time limit on a
+    # slow host
     for name, kw, idle in runs:
-        opts = wt.ServeOptions(batch_size=4, sample_len=24, language="en",
+        opts = wt.ServeOptions(batch_size=4, sample_len=16, language="en",
                                temperature=(0.0, 0.4), kv_dtype="int8", **kw)
-        with main_path(name, kernels, cfg.n_text_layer, idle=idle) as calls:
+        with main_path(name, kernels, idle=idle) as calls:
             results = wt.transcribe_batch(model, audios, opts)
         for r, s in zip(results, seconds):
             check_segments(r, cfg, float(s))
@@ -1822,7 +1866,7 @@ def words_slice(wt, model, kernels):
     counted exactly; K1 counts the re-encodes."""
     cfg = model.cfg
     audio = speechy(70, 3)
-    with main_path("transcribe words", kernels, cfg.n_text_layer,
+    with main_path("transcribe words", kernels,
                    idle=WORDS_IDLE + ("sqa_self",)) as calls:
         result = model.transcribe(audio, kv_dtype="int8", temperature=(0.0, 0.4),
                                   sample_len=16, word_timestamps=True,
@@ -1841,7 +1885,7 @@ def words_slice(wt, model, kernels):
                            temperature=(0.0, 0.4), kv_dtype="int8",
                            scheduler="continuous", cache_dtype="int8",
                            chunk_tokens=16, word_timestamps=True)
-    with main_path("serve_batch continuous words", kernels, cfg.n_text_layer,
+    with main_path("serve_batch continuous words", kernels,
                    idle=WORDS_IDLE + ("sqa_self",)) as calls:
         results = wt.transcribe_batch(model, audios, opts)
     words = []
@@ -1854,21 +1898,26 @@ def words_slice(wt, model, kernels):
 
 
 def cli_slice(kernels):
-    from openai_whisper_coreml_tpu_torch import cli
+    """The CLI on a 35 s WAV at large-v3 int8 with word timestamps and the
+    large-v3-turbo draft (`--draft-model large-v3-turbo --spec-k 4`): the
+    draft loads through load_model and decodes under the call's governor."""
+    from openai_whisper_coreml_tpu_torch import cli, speculative
     from openai_whisper_coreml_tpu_torch.config import get_config
     from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
 
     cfg = get_config("large-v3")
+    spec_before = dict(speculative.TOTALS)
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "clip.wav")
         save_wav(wav, speechy(35, 5))  # two windows: the seek runs on the card
-        with main_path("cli", kernels, cfg.n_text_layer, idle=WORDS_IDLE) as calls:
+        with main_path("cli", kernels, idle=WORDS_IDLE) as calls:
             rc = cli.main([wav, "--model", "large-v3", "--quantize", "int8",
                            "--kv-dtype", "int8", "--dtype", "bfloat16",
                            "--temperature-increment-on-fallback", "0",
                            "--output-format", "all", "--language", "en",
                            "--word-timestamps", "--max-line-width", "42",
-                           "--highlight-words", "--output-dir", tmp])
+                           "--highlight-words", "--draft-model", "large-v3-turbo",
+                           "--spec-k", str(SPEC_K), "--output-dir", tmp])
         if rc != 0:
             raise AssertionError(f"cli.main returned {rc}")
         sizes = {}
@@ -1888,8 +1937,11 @@ def cli_slice(kernels):
         raise AssertionError(f"cli output files: {sizes}")
     if calls["encode"] < 2:
         raise AssertionError(f"cli: {calls['encode']} windows encoded, expected 2")
+    spec = {k: speculative.TOTALS[k] - spec_before[k] for k in spec_before}
+    if spec["iters"] == 0:
+        raise AssertionError("cli --draft-model ran no speculative decode")
     log(f"cli wrote {sizes} bytes; {len(result['segments'])} segments, {n_words} "
-        f"words, {calls['align_forwards']} alignment forwards")
+        f"words, {calls['align_forwards']} alignment forwards; speculative {spec}")
 
 
 def wav_bytes(audio: np.ndarray) -> bytes:
@@ -1925,23 +1977,67 @@ def multipart(fields: dict, data: bytes):
     return body, {"Content-Type": f"multipart/form-data; boundary={bound}"}
 
 
-def server_slice(model, kernels, name, options, idle):
+def server_routes(srv, name, short):
+    """The server's other routes on one short WAV: word timestamps on
+    /transcribe and as verbose_json words on /v1/audio/transcriptions,
+    the OpenAI route as json and srt, /detect. Returns (the words on
+    /transcribe, the verbose_json answer)."""
+    code, raw = http(srv, "/transcribe?word_timestamps=1", short)
+    if code != 200:
+        raise AssertionError(f"{name}: word timestamps answered {code} {raw!r}")
+    worded = json.loads(raw)
+    n_words = check_words(worded, f"{name} /transcribe words")
+    code, raw = http(srv, "/v1/audio/transcriptions", *multipart(
+        {"language": "en", "response_format": "verbose_json",
+         "timestamp_granularities[]": "word"}, short))
+    verbose = json.loads(raw) if code == 200 else {}
+    if code != 200 or verbose.get("words") != [
+            w for seg in verbose["segments"] for w in seg["words"]]:
+        raise AssertionError(f"{name}: verbose_json words answered {code} "
+                             f"{raw[:300]!r}")
+    check_words(verbose, f"{name} verbose_json words")
+    outs = {}
+    for fmt in ("json", "srt"):
+        code, outs[fmt] = http(srv, "/v1/audio/transcriptions",
+                               *multipart({"language": "en",
+                                           "response_format": fmt}, short))
+        if code != 200:
+            raise AssertionError(f"{name}: /v1/audio/transcriptions {fmt}: "
+                                 f"{code} {outs[fmt][:200]!r}")
+    if set(json.loads(outs["json"])) != {"text"} or b"-->" not in outs["srt"]:
+        raise AssertionError(f"{name}: OpenAI answers {outs}")
+    code, raw = http(srv, "/detect", short)
+    detected = json.loads(raw)
+    if code != 200 or detected["language"] not in detected["probs"]:
+        raise AssertionError(f"{name}: /detect answered {code} {raw!r}")
+    return n_words, verbose
+
+
+def server_slice(model, kernels, name, options, idle, spec=False):
     """The HTTP server in-process on the loopback at large-v3 int8
     (`WhisperHTTPServer(model, port=0, batch_size=4, warmup=True)`):
-    /readyz 503 then 200; four concurrent /transcribe WAV POSTs of 10-35 s,
+    /readyz 503 then 200; four concurrent /transcribe WAV POSTs of 10-25 s,
     micro-batched into fewer batches than requests, with a /stream of 6 s
     in flight beside them; word timestamps on /transcribe and as
     verbose_json words on /v1/audio/transcriptions (K1's causal mode);
     /v1/audio/transcriptions as json and srt, /detect, /metrics in
-    Prometheus form; then stop(). Launches are read after the requests."""
+    Prometheus form; then stop(). Launches are read after the requests.
+    spec: the model carries a draft (`--draft-model` in-process), and the
+    run is cut to what the draft changes: no warmup, two /transcribe POSTs
+    of 10 and 15 s in one batch that decodes speculatively (options with
+    spec_fallback off: a governor would withhold the floor draft), the
+    /stream beside them ticking under the stream's own governor, and
+    /metrics, which must hold the speculative counters and gauges."""
     from openai_whisper_coreml_tpu_torch.serve_http import WhisperHTTPServer
 
     cfg = model.cfg
-    seconds = (10, 20, 30, 35)
+    # one window each: the requests fit one batch
+    seconds = (10, 15) if spec else (10, 15, 20, 25)
     audios = [speechy(sec, 60 + i) for i, sec in enumerate(seconds)]
-    with main_path(name, kernels, cfg.n_text_layer, idle=idle) as calls:
+    n_words, verbose = 0, {"words": []}
+    with main_path(name, kernels, idle=idle) as calls:
         srv = WhisperHTTPServer(model, port=0, batch_size=4, batch_window_ms=300,
-                                warmup=True, default_options=options)
+                                warmup=not spec, default_options=options)
         t0 = time.perf_counter()
         srv.start()
         try:
@@ -1951,8 +2047,8 @@ def server_slice(model, kernels, name, options, idle):
                     raise AssertionError(f"{name}: /readyz never turned 200")
                 time.sleep(0.05)
             warm_s = time.perf_counter() - t0
-            if first != 503:
-                raise AssertionError(f"{name}: /readyz was {first} during warmup")
+            if first != (200 if spec else 503):
+                raise AssertionError(f"{name}: /readyz was {first} at start")
             batches0 = srv.metrics.counter("batches_total")
             results = [None] * (len(audios) + 1)
 
@@ -1987,46 +2083,24 @@ def server_slice(model, kernels, name, options, idle):
             if batches >= len(audios):
                 raise AssertionError(f"{name}: {batches} batches for {len(audios)} "
                                      f"requests: not micro-batched")
-            short = wav_bytes(audios[0])
-            code, raw = http(srv, "/transcribe?word_timestamps=1", short)
-            if code != 200:
-                raise AssertionError(f"{name}: word timestamps answered {code} {raw!r}")
-            worded = json.loads(raw)
-            n_words = check_words(worded, f"{name} /transcribe words")
-            code, raw = http(srv, "/v1/audio/transcriptions", *multipart(
-                {"language": "en", "response_format": "verbose_json",
-                 "timestamp_granularities[]": "word"}, short))
-            verbose = json.loads(raw) if code == 200 else {}
-            if code != 200 or verbose.get("words") != [
-                    w for seg in verbose["segments"] for w in seg["words"]]:
-                raise AssertionError(f"{name}: verbose_json words answered {code} "
-                                     f"{raw[:300]!r}")
-            check_words(verbose, f"{name} verbose_json words")
-            outs = {}
-            for fmt in ("json", "srt"):
-                code, outs[fmt] = http(srv, "/v1/audio/transcriptions",
-                                       *multipart({"language": "en",
-                                                   "response_format": fmt}, short))
-                if code != 200:
-                    raise AssertionError(f"{name}: /v1/audio/transcriptions {fmt}: "
-                                         f"{code} {outs[fmt][:200]!r}")
-            if set(json.loads(outs["json"])) != {"text"} or b"-->" not in outs["srt"]:
-                raise AssertionError(f"{name}: OpenAI answers {outs}")
-            code, raw = http(srv, "/detect", short)
-            detected = json.loads(raw)
-            if code != 200 or detected["language"] not in detected["probs"]:
-                raise AssertionError(f"{name}: /detect answered {code} {raw!r}")
+            if not spec:
+                n_words, verbose = server_routes(srv, name, wav_bytes(audios[0]))
             code, prom = http(srv, "/metrics?format=prometheus")
             prom = prom.decode()
             if code != 200 or "whisper_tpu_requests_total" not in prom:
                 raise AssertionError(f"{name}: /metrics answered {code} {prom[:200]}")
+            if spec and not all(f"whisper_tpu_{m}" in prom for m in (
+                    "spec_tokens", "spec_iters", "spec_tokens_per_iter",
+                    "spec_acceptance_rate")):
+                raise AssertionError(f"{name}: /metrics without the speculative "
+                                     f"counters: {prom}")
             health = json.loads(http(srv, "/healthz")[1])
             if health["backend"] != model.device.type:
                 raise AssertionError(f"{name}: /healthz {health}")
         finally:
             srv.stop()
     snap = srv.metrics.snapshot()
-    log(f"{name}: warmup {warm_s:.3f} s; four /transcribe and a 6 s /stream in "
+    log(f"{name}: warmup {warm_s:.3f} s; {len(audios)} /transcribe and a 6 s /stream in "
         f"{batch_s:.3f} s wall, {batches:.0f} batch(es); stream lines {len(lines)}; "
         f"words {n_words} on /transcribe, {len(verbose['words'])} in verbose_json; "
         f"batch latency {snap['summaries']['batch_latency_s']}; {calls['steps']} "
@@ -2034,7 +2108,7 @@ def server_slice(model, kernels, name, options, idle):
 
 
 def multistream_slice(model, kernels):
-    """Two live streams of 6 s (different audio) through
+    """Two live streams of 4 s (different audio) through
     MultiStreamTranscriber's poll loop, 1 s chunks: each tick one K4 call
     and one encode (K1) for the due streams, K3 per step (streams decode
     with a bf16 cross-KV and cache, as in JAX, so K6 stays idle); then both
@@ -2042,14 +2116,14 @@ def multistream_slice(model, kernels):
     import openai_whisper_coreml_tpu_torch as wt
 
     cfg = model.cfg
-    audios = [speechy(6, 80), speechy(6, 81)]
-    with main_path("multistream", kernels, cfg.n_text_layer,
+    audios = [speechy(4, 80), speechy(4, 81)]
+    with main_path("multistream", kernels,
                    idle=SERVING_IDLE + ("sqa_int8",)) as calls:
         mst = wt.MultiStreamTranscriber(model, n_streams=2, language="en")
         events = {0: [], 1: []}
         ticks = 0
         t = time.perf_counter()
-        for off in range(0, 6 * SR, SR):
+        for off in range(0, 4 * SR, SR):
             for i, a in enumerate(audios):
                 mst.feed(i, a[off:off + SR])
             got = mst.poll()
@@ -2071,7 +2145,7 @@ def multistream_slice(model, kernels):
 
 
 def cli_stream_slice(kernels):
-    """`cli.main --stream` on a 7 s WAV at large-v3 int8: 1 s chunks
+    """`cli.main --stream` on a 5 s WAV at large-v3 int8: 1 s chunks
     through StreamingTranscriber, confirmed text printed as it comes (K4 and
     K1 per tick, K3 per step; bf16 cross-KV and cache, as in JAX)."""
     from openai_whisper_coreml_tpu_torch import cli
@@ -2082,17 +2156,369 @@ def cli_stream_slice(kernels):
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "stream.wav")
-        save_wav(wav, speechy(7, 9))
-        with main_path("cli --stream", kernels, cfg.n_text_layer,
+        save_wav(wav, speechy(5, 9))
+        with main_path("cli --stream", kernels,
                        idle=SERVING_IDLE + ("sqa_int8",)) as calls:
             with contextlib.redirect_stdout(out):
                 rc = cli.main([wav, "--stream", "--model", "large-v3", "--quantize",
                                "int8", "--dtype", "bfloat16", "--language", "en"])
     text = out.getvalue()
-    if rc != 0 or not text.endswith("\n") or calls["log_mel"] != 8:
+    if rc != 0 or not text.endswith("\n") or calls["log_mel"] != 6:
         raise AssertionError(f"cli --stream: rc {rc}, {calls}, output {text!r}")
-    log(f"cli --stream of 7 s: {calls['log_mel']} decodes (7 ticks and the flush), "
+    log(f"cli --stream of 5 s: {calls['log_mel']} decodes (5 ticks and the flush), "
         f"{calls['steps']} steps; printed {len(text)} characters")
+
+
+SPEC_K = 4
+
+
+def load_draft(wt, model):
+    """The large-v3 target's draft: large-v3-turbo with int8 weights from
+    seed 1 (its encoder's width and context are the target's, so it shares
+    the target's features and runs no encoder)."""
+    draft = wt.load_model("large-v3-turbo", dtype=torch.bfloat16, quantize="int8",
+                          seed=1, device="cuda")
+    wt.check_pair(model.cfg, draft.cfg)
+    return draft
+
+
+def check_grammar(results, cfg, name):
+    """Every token in the vocabulary, below EOT (the harvest cut it), no
+    special token, and timestamps that never decrease."""
+    for r in results:
+        stamps = [t for t in r.tokens if t >= cfg.timestamp_begin]
+        if not (all(0 <= t < cfg.n_vocab for t in r.tokens)
+                and all(t < cfg.eot_token or t >= cfg.timestamp_begin
+                        for t in r.tokens)
+                and stamps == sorted(stamps)
+                and np.isfinite(r.avg_logprob)):
+            raise AssertionError(f"{name}: tokens outside the grammar: {r.tokens[:32]}")
+
+
+@contextlib.contextmanager
+def walk_pairs(cfg, k: int, sample_len: int):
+    """Replay the greedy speculative loop's acceptance walk from its rule
+    calls (`speculative._apply_logit_rules`): an iteration filters the
+    commit's logits, then the draft's K proposals' (T = 1 steps), then the
+    verify's K columns (one T = K+1 step), and draft j and column j predict
+    one position from one prefix. Yields a dict; on exit "mismatches" holds
+    one entry per rejected proposal (a live row still accepting whose two
+    filtered argmaxes differ): row, position, both picks, the verify's and
+    the draft's margin between them (inf where the rules masked the other
+    pick there), bf16's spacing at the picks' logits and, for a masked
+    pick between text and a timestamp, the timestamp rule's own margin
+    ("ts_rule_gap"); "accepted" the proposals the replay accepts, which
+    must be the decode's n_sampled - n_iters. The replay's positions must
+    be the loop's, iteration by iteration."""
+    from openai_whisper_coreml_tpu_torch import speculative
+    from openai_whisper_coreml_tpu_torch.decoding import NEG_INF
+
+    rules = speculative._apply_logit_rules
+    calls, out = [], {"mismatches": [], "accepted": 0}
+    masked = NEG_INF / 2  # the rules mask with NEG_INF, a finite number
+
+    def recording(logits, tokens, pos, cfg_, prompt_len, *args):
+        filt = rules(logits, tokens, pos, cfg_, prompt_len, *args)
+        calls.append((pos.clone(), filt, prompt_len))
+        return filt
+
+    speculative._apply_logit_rules = recording
+    try:
+        yield out
+    finally:
+        speculative._apply_logit_rules = rules
+    per_iter = 1 + 2 * k
+    if not calls or len(calls) % per_iter:
+        raise AssertionError(f"walk_pairs: {len(calls)} rule calls, not a "
+                             f"multiple of {per_iter}")
+    eot, total_len = cfg.eot_token, calls[0][2] + sample_len
+    finished = None
+    for i in range(0, len(calls), per_iter):
+        pos = calls[i][0].cpu().numpy()
+        if finished is None:
+            finished = np.zeros(pos.shape, bool)
+        elif not np.array_equal(pos, new_pos):
+            raise AssertionError(f"walk_pairs: replayed positions {new_pos}, "
+                                 f"the loop's {pos}")
+        g = calls[i][1].argmax(dim=-1).cpu().numpy()
+        accepting = ~(finished | (g == eot) | (pos + 1 >= total_len))
+        eot_hit = (g == eot) & ~finished
+        acc = np.zeros(pos.shape, np.int64)
+        for j in range(k):
+            d_filt, v_filt = calls[i + 1 + j][1], calls[i + 1 + k + j][1]
+            dp, vp = d_filt.argmax(dim=-1), v_filt.argmax(dim=-1)
+            picks = torch.stack([dp, vp], dim=1)
+            d_at = d_filt.gather(1, picks).cpu().numpy()  # at (dp, vp)
+            v_at = v_filt.gather(1, picks).cpu().numpy()
+            dp, vp = dp.cpu().numpy(), vp.cpu().numpy()
+            match = accepting & (dp == vp)
+            for row in np.nonzero(accepting & (dp != vp))[0]:
+                both = np.concatenate([d_at[row], v_at[row]])
+                scale = float(np.max(np.abs(both[both > masked])))
+                m = {"row": int(row), "pos": int(pos[row] + j + 1),
+                     "draft_pick": int(dp[row]), "verify_pick": int(vp[row]),
+                     "verify_margin": (float(v_at[row, 1] - v_at[row, 0])
+                                       if v_at[row, 0] > masked else np.inf),
+                     "draft_margin": (float(d_at[row, 0] - d_at[row, 1])
+                                      if d_at[row, 1] > masked else np.inf),
+                     "bf16_spacing": float(2.0 ** (np.floor(np.log2(scale)) - 7)),
+                     "ts_rule_gap": None}
+                if np.isinf(m["verify_margin"]) or np.isinf(m["draft_margin"]):
+                    # a pick the other side's rules masked: where one side
+                    # picked text and the other a timestamp, the text side's
+                    # timestamp mass less its best text logprob, the rule's
+                    # own margin (it masks text when this is above 0)
+                    text = [f for f, p_ in ((d_filt, dp), (v_filt, vp))
+                            if p_[row] < cfg.timestamp_begin]
+                    if len(text) == 1:
+                        lp = torch.log_softmax(text[0][row], dim=-1)
+                        ts = cfg.timestamp_begin
+                        m["ts_rule_gap"] = float(torch.logsumexp(lp[ts:], dim=-1)
+                                                 - lp[:ts].max())
+                out["mismatches"].append(m)
+            acc += match
+            eot_hit |= match & (dp == eot)
+            accepting = match & (dp != eot) & (pos + j + 2 < total_len)
+        new_pos = np.where(finished, pos, pos + acc + 1)
+        finished = finished | eot_hit | (new_pos >= total_len)
+        out["accepted"] += int(acc.sum())
+
+
+# a self-draft's rejected proposal in bf16 is a near-tie of the T = 1 and
+# T = K+1 graphs' rounding when the two picks' logits lie within this many
+# bf16 spacings in both; a fault in the verify path (a wrong mask, cache
+# column or scale) moves a logit by O(1), tens of spacings
+SELF_DRAFT_BF16_SPACINGS = 16
+
+
+def check_near_ties(walk, stats, name, bound) -> None:
+    """The replay accepted what the decode did, and every rejected
+    proposal is a near-tie within bound(mismatch): both margins, or, where
+    one side's rules masked the other's pick, the timestamp rule's margin
+    (any other masked pick is a rule applied differently, not rounding)."""
+    if walk["accepted"] != stats["tokens"] - stats["iters"]:
+        raise AssertionError(f"{name}: the replay accepted {walk['accepted']}, "
+                             f"the decode {stats['tokens'] - stats['iters']}")
+
+    def near(m):
+        gap = m["ts_rule_gap"]
+        if gap is not None:
+            return abs(gap) <= bound(m)
+        return max(m["verify_margin"], m["draft_margin"]) <= bound(m)
+
+    far = [m for m in walk["mismatches"] if not near(m)]
+    if far:
+        raise AssertionError(f"{name}: rejected proposals that are no near-tie: "
+                             f"{far}")
+
+
+def spec_decode_slice(wt, model, draft, kernels, plain) -> dict:
+    """Speculative decoding at large-v3's full width: the int8 target and
+    the large-v3-turbo draft, K = 4, serve's four 30 s windows, 224-token
+    greedy, through `decoding.decode(draft=...)`. A main path, and held
+    exactly: each loop iteration runs K+1 single-token draft steps, each
+    one K3 launch (its bf16 cache) and one K6 launch (its int8 cross-KV)
+    per draft layer, and the verify step (T = K+1) launches none; the
+    iterations are the slowest row's (`LAST_TIMING["units"]`). Prints
+    tokens per iteration, the acceptance rate (the random weights' floor)
+    and the walls against serve's plain decode of the same windows. Then
+    the target as its own draft: acceptance at least 0.9 in bf16, and each
+    rejected proposal, replayed from the walk's rule calls (walk_pairs),
+    printed with its margins and held to be a near-tie of the T=1 and
+    T=K+1 graphs' rounding (check_near_ties); then a sampled rung at
+    t = 0.4 with the self-draft, twice with one seed: the same tokens, in
+    the grammar."""
+    from openai_whisper_coreml_tpu_torch import decoding, speculative
+
+    cfg = model.cfg
+    audio = serve_audio()
+    opts = wt.DecodingOptions(language="en", kv_dtype="int8", sample_len=224,
+                              spec_k=SPEC_K)
+    with main_path("spec_decode", kernels) as calls:
+        t = time.perf_counter()
+        mel = model.log_mel(audio)
+        before = read_counts(kernels)
+        results = decoding.decode(model, mel, opts, draft=draft)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = {k: n - before[k] for k, n in read_counts(kernels).items()}
+    timing, stats = dict(speculative.LAST_TIMING), dict(speculative.LAST_STATS)
+    want = draft.cfg.n_text_layer * (SPEC_K + 1) * timing["units"]
+    if (timing["path"] != "spec" or calls["encode"] != 1
+            or launched["sqa_self"] != want or launched["sqa_int8"] != want):
+        raise AssertionError(f"spec_decode: {timing}, {calls}, launches {launched}, "
+                             f"expected {want} K3 and K6 launches")
+    check_grammar(results, cfg, "spec_decode")
+    record = {"tokens_per_iter": stats["tokens_per_iter"],
+              "acceptance_rate": stats["acceptance_rate"], "iters": timing["units"],
+              "wall_s": wall, "core_s": timing["wall_s"],
+              "ms_per_iter": timing["wall_s"] * 1e3 / timing["units"],
+              "plain_wall_s": plain["wall_s"], "plain_core_s": plain["core"]["wall_s"],
+              "plain_ms_per_token": plain["core"]["wall_s"] * 1e3
+              / plain["core"]["units"]}
+    log(f"[spec_decode] large-v3 int8 + large-v3-turbo draft, K={SPEC_K}, B=4, 224 "
+        f"tokens on {card()}: {stats['tokens_per_iter']:.4f} tokens/iteration, "
+        f"acceptance {stats['acceptance_rate']:.4f} (random-weights floor), "
+        f"{timing['units']} iterations, {record['ms_per_iter']:.3f} ms/iteration; "
+        f"wall {wall:.3f} s (core {timing['wall_s']:.3f} s) against the plain loop's "
+        f"{plain['wall_s']:.3f} s (core {plain['core']['wall_s']:.3f} s, "
+        f"{record['plain_ms_per_token']:.3f} ms/token); tokens per row "
+        f"{[len(r.tokens) for r in results]}; K3 and K6 launches {want} each")
+
+    feats = model.encode(mel)
+    # the same 224-token horizon (at 50 tokens the acceptance read 0.886);
+    # every rejected proposal is replayed from the walk's rule calls
+    t = time.perf_counter()
+    with walk_pairs(cfg, SPEC_K, opts.sample_len) as walk:
+        decoding.decode(model, feats, opts, from_features=True, draft=model)
+    wall = time.perf_counter() - t
+    self_stats = dict(speculative.LAST_STATS)
+    record["self_draft"] = {"acceptance_rate": self_stats["acceptance_rate"],
+                            "tokens_per_iter": self_stats["tokens_per_iter"],
+                            "wall_s": wall, "mismatches": walk["mismatches"]}
+    log(f"[spec_decode] self-draft (bf16, {opts.sample_len} tokens): acceptance "
+        f"{self_stats['acceptance_rate']:.4f}, {self_stats['tokens_per_iter']:.4f} "
+        f"tokens/iteration, {wall:.3f} s (the rule calls recorded); "
+        f"{len(walk['mismatches'])} rejected proposals, each with the verify's "
+        f"and the draft's margins between the two picks and bf16's spacing "
+        f"there: {walk['mismatches']}")
+    if self_stats["acceptance_rate"] < 0.9:
+        raise AssertionError(f"self-draft acceptance {self_stats}")
+    check_near_ties(walk, self_stats, "bf16 self-draft",
+                    lambda m: SELF_DRAFT_BF16_SPACINGS * m["bf16_spacing"])
+    sampled = dataclasses.replace(opts, sample_len=32, temperature=0.4)
+    runs = [decoding.decode(model, feats, sampled, from_features=True, draft=model,
+                            seed=7) for _ in range(2)]
+    if [r.tokens for r in runs[0]] != [r.tokens for r in runs[1]]:
+        raise AssertionError("sampled speculative rung: one seed, other tokens")
+    check_grammar(runs[0], cfg, "spec_decode sampled")
+    log(f"[spec_decode] sampled rung t=0.4, self-draft, seed 7 twice: tokens equal, "
+        f"tokens per row {[len(r.tokens) for r in runs[0]]}, acceptance "
+        f"{speculative.LAST_STATS['acceptance_rate']:.4f}")
+    return record
+
+
+def spec_parity(wt):
+    """fp32 on the card, TF32 off: the turbo config as target (its full
+    widths, 4 text layers, random weights from seed 0), drafted by itself and
+    by a second seed, features' dtype cross-KV and an fp32 cache: the
+    speculative greedy tokens are the plain greedy loop's, or a row differs
+    first where the target's two candidates lie within 1e-4 (a near-tie of
+    summation order: cuBLAS may sum M = B and M = B(K+1) apart); each such
+    margin is printed. The self-draft's rejected proposals are replayed
+    from the walk's rule calls and must be near-ties within 1e-4 too, the
+    same rules running in the draft's steps and the walk. Then the tiny model of fp32_parity with int8 cross-KV
+    (K6 in the draft's steps on the card): the card's speculative tokens are
+    the CPU's."""
+    from openai_whisper_coreml_tpu_torch import decoding, speculative
+    from openai_whisper_coreml_tpu_torch.config import get_config, tiny_test_config
+
+    cfg = get_config("large-v3-turbo")
+    target = wt.build_model(cfg, dtype=torch.float32, seed=0, device="cuda")
+    drafts = {"self": target,
+              "seed 1": wt.build_model(cfg, dtype=torch.float32, seed=1, device="cuda")}
+    audio = (np.random.default_rng(2).standard_normal((3, 480_000)) * 0.1
+             ).astype(np.float32)
+    feats = target.encode(target.log_mel(audio))
+    opts = wt.DecodingOptions(language="en", sample_len=48, spec_k=SPEC_K)
+    plain = decoding.decode(target, feats, opts, from_features=True)
+    tok = wt.get_tokenizer(cfg, language="en")
+    prompt = [tok.sot, tok.language_token("en"), tok.transcribe]
+    for name, draft in drafts.items():
+        with walk_pairs(cfg, SPEC_K, opts.sample_len) as walk:
+            spec = decoding.decode(target, feats, opts, from_features=True,
+                                   draft=draft)
+        if name == "self":
+            stats = dict(speculative.LAST_STATS)
+            log(f"fp32 spec parity (turbo target, self draft): acceptance "
+                f"{stats['acceptance_rate']:.4f}; rejected proposals "
+                f"{walk['mismatches']}")
+            check_near_ties(walk, stats, "fp32 self-draft", lambda m: 1e-4)
+        margins = []
+        for row, (p, q) in enumerate(zip(plain, spec)):
+            if p.tokens == q.tokens:
+                continue
+            i = next((j for j, (a, b) in enumerate(zip(p.tokens, q.tokens)) if a != b),
+                     min(len(p.tokens), len(q.tokens)))
+            a = p.tokens[i] if i < len(p.tokens) else cfg.eot_token
+            b = q.tokens[i] if i < len(q.tokens) else cfg.eot_token
+            logits = target.logits([prompt + p.tokens[:i]], feats[row:row + 1])[0, -1]
+            margins.append((row, i, abs(float(logits[a] - logits[b]))))
+        log(f"fp32 spec parity (turbo target, {name} draft): rows equal to plain "
+            f"{[p.tokens == q.tokens for p, q in zip(plain, spec)]}; tokens per row "
+            f"{[len(r.tokens) for r in spec]}; first-difference margins {margins}")
+        if any(m >= 1e-4 for _, _, m in margins):
+            raise AssertionError(f"fp32 spec parity ({name} draft): {margins}")
+    del target, drafts
+    torch.cuda.empty_cache()
+
+    tiny = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    cpu = wt.build_model(tiny, dtype=torch.float32, seed=0, device="cpu")
+    cpu_d = wt.build_model(tiny, dtype=torch.float32, seed=1, device="cpu")
+    mel = cpu.log_mel((np.random.default_rng(1).standard_normal((2, 480_000)) * 0.1
+                       ).astype(np.float32))
+    opts = wt.DecodingOptions(language="en", sample_len=48, spec_k=SPEC_K,
+                              kv_dtype="int8")
+    gpu, gpu_d = copy.deepcopy(cpu).to("cuda"), copy.deepcopy(cpu_d).to("cuda")
+    on_card = decoding.decode(gpu, mel.cuda(), opts, draft=gpu_d)
+    on_cpu = decoding.decode(cpu, mel, opts, draft=cpu_d)
+    equal = [a.tokens == b.tokens for a, b in zip(on_card, on_cpu)]
+    log(f"fp32 spec parity card vs cpu (tiny, int8 cross-KV): tokens equal {equal}, "
+        f"tokens per row {[len(r.tokens) for r in on_card]}")
+    if not all(equal):
+        raise AssertionError("fp32 speculative decode: card and CPU differ")
+
+
+def spec_entry_points(wt, model, draft, kernels):
+    """The draft through the other entry points at cut depths, each a main
+    path: transcribe(draft_model=...) of 20 s (16-token windows), then
+    transcribe_batch of three requests (10, 20 and 35 s) under the static
+    scheduler with model.draft set (16-token windows; the governor's
+    verdict printed: it should withhold the floor draft once it holds
+    min_iters of evidence)."""
+    import importlib
+
+    from openai_whisper_coreml_tpu_torch import speculative
+
+    serve = importlib.import_module("openai_whisper_coreml_tpu_torch.serve")
+    cfg = model.cfg
+    before = dict(speculative.TOTALS)
+    with main_path("transcribe draft", kernels) as calls:
+        result = model.transcribe(speechy(20, 3), kv_dtype="int8",
+                                  temperature=(0.0, 0.4), sample_len=16,
+                                  draft_model=draft)
+    check_segments(result, cfg, 20.0)
+    spec = {k: speculative.TOTALS[k] - before[k] for k in before}
+    if spec["iters"] == 0:
+        raise AssertionError("transcribe(draft_model=...) ran no speculative decode")
+    log(f"transcribe draft of 20 s: {calls['encode'] - 1} windows, "
+        f"{len(result['segments'])} segments; speculative {spec}; "
+        f"{calls['steps']} single-token steps")
+
+    seconds = (10, 20, 35)
+    audios = [speechy(sec, 30 + i) for i, sec in enumerate(seconds)]
+    opts = wt.ServeOptions(batch_size=4, sample_len=16, language="en",
+                           temperature=(0.0, 0.4), kv_dtype="int8",
+                           scheduler="static", spec_k=SPEC_K)
+    model.draft = draft
+    try:
+        before = dict(speculative.TOTALS)
+        with main_path("serve_batch static draft", kernels) as calls:
+            results = wt.transcribe_batch(model, audios, opts)
+        gov = serve.spec_governor(model, opts)
+    finally:
+        model.draft = None
+    for r, sec in zip(results, seconds):
+        check_segments(r, cfg, float(sec))
+    spec = {k: speculative.TOTALS[k] - before[k] for k in before}
+    if spec["iters"] == 0:
+        raise AssertionError("transcribe_batch with a draft ran no speculative decode")
+    log(f"serve_batch static draft: {calls['encode']} encoder calls, "
+        f"{calls['steps']} single-token steps; speculative {spec}; governor: "
+        f"withholding {gov.disabled} (sampled {gov.disabled_sampled}), tokens/iter "
+        f"{gov.tokens_per_iter}, threshold {gov.threshold:.4f} (prior "
+        f"{gov.prior_threshold:.4f}, calibrated {gov.calibrated}), live ms/iter "
+        f"{gov.live_iter_ms}, live ms/token {gov.live_tok_ms}")
 
 
 def sqa_v3_probe_slice(kernels) -> list:
@@ -2188,7 +2614,7 @@ def encoder_slice(model, kernels) -> dict:
     audio = (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
              ).astype(np.float32)
     idle = tuple(k for k in kernels if k not in ("flash_attention", "log_mel"))
-    with main_path("encoder", kernels, model.cfg.n_text_layer, idle=idle) as calls:
+    with main_path("encoder", kernels, idle=idle) as calls:
         mel = model.log_mel(audio)
         result = torch_encode_time.measure(model, mel, runs=5)
     if result["flash_launches"] != model.cfg.n_audio_layer:
@@ -2347,6 +2773,7 @@ def main() -> int:
                check_sqa_self(ss), check_sqa_int8(si), check_sqa_v3(sv, si)]
     check_flash_grad(fa)
     fp32_parity(wt, fa, mk, si)
+    spec_parity(wt)
     word_parity(wt, fa)
     convert_slice()
     train_parity(fa)
@@ -2359,7 +2786,10 @@ def main() -> int:
     log(f"large-v3 int8 loaded in {time.perf_counter() - t0:.1f} s, "
         f"{model.num_params} parameters")
     encoder = encoder_slice(model, kernels)
-    serve_slice(wt, model, kernels)
+    plain = serve_slice(wt, model, kernels)
+    draft = load_draft(wt, model)
+    spec = spec_decode_slice(wt, model, draft, kernels, plain)
+    spec_entry_points(wt, model, draft, kernels)
     transcribe_slice(model, kernels)
     serve_batch_slice(wt, model, kernels)
     words_slice(wt, model, kernels)
@@ -2368,6 +2798,15 @@ def main() -> int:
     served = {"language": "en", "kv_dtype": "int8", "sample_len": 16,
               "temperature": (0.0,), "no_speech_threshold": None}
     server_slice(model, kernels, "server static", served, WORDS_IDLE)
+    # then with the turbo draft on the model, as `--draft-model` sets it
+    model.draft = draft
+    try:
+        server_slice(model, kernels, "server static draft",
+                     {**served, "spec_k": SPEC_K, "spec_fallback": False},
+                     SERVING_IDLE, spec=True)
+    finally:
+        model.draft = None
+    del draft
     server_slice(model, kernels, "server continuous beam",
                  {**served, "scheduler": "continuous", "beam_size": 2,
                   "chunk_tokens": 16}, WORDS_IDLE)
@@ -2382,6 +2821,7 @@ def main() -> int:
     for record in records:
         record["launches"] = TOTALS[record["name"]]
     records[0]["encoder_large_v3_b4"] = encoder
+    log("spec_decode: " + json.dumps(spec))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card())

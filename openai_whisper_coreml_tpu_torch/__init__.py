@@ -5,7 +5,8 @@ kernel) -> int8 or bf16 cross-KV -> greedy, sampled or beam KV-cached
 decoding over a bf16 or int8 self-attention cache (Hopper single-query
 attention kernels on every single-token step) with the timestamp rules,
 language ID, long-form `transcribe`, word timestamps (`timing.py`, on
-every entry point), batched serving (`transcribe_batch`, static and
+every entry point), speculative decoding with a draft model
+(`speculative.py`, on every entry point), batched serving (`transcribe_batch`, static and
 continuous schedulers, beam under both), streaming
 (`StreamingTranscriber`, `MultiStreamTranscriber`), the HTTP server
 (`python -m openai_whisper_coreml_tpu_torch.serve_http`), the CLI
@@ -22,6 +23,7 @@ from .decoding import (DecodingOptions, DecodingResult, decode,  # noqa: F401
                        detect_language)
 from .models.whisper import WhisperModel, build_model, load_model  # noqa: F401
 from .serve import ServeOptions, transcribe_batch  # noqa: F401
+from .speculative import check_pair, spec_decode_core, spec_stats  # noqa: F401
 from .stream import (MultiStreamTranscriber, StreamEvent,  # noqa: F401
                      StreamingTranscriber)
 from .tokenizer import get_tokenizer  # noqa: F401

@@ -10,12 +10,13 @@ flags are the JAX package's; `--checkpoint` reads a `.safetensors` file
 `--word-timestamps` attaches per-word timings (`timing.py`), which the
 subtitle options (`--max-line-width`, `--max-line-count`,
 `--max-words-per-line`, `--highlight-words`) and
-`--hallucination-silence-threshold` act on. Flags whose module is not
-ported yet raise with a message naming ROADMAP.md: `--draft-model`,
-`--profile-dir` and `--tensor-parallel` above 1.
-Left out are the JAX CLI's `--batch`, which it never reads, and
-`--draft-checkpoint` and `--spec-k`, which only `--draft-model` reads. The model is built on the
-card; without one, loading it raises.
+`--hallucination-silence-threshold` act on. `--draft-model` (with
+`--draft-checkpoint` and `--spec-k`) decodes speculatively with a draft
+model sharing the tokenizer (`speculative.py`), in files and with
+`--stream`. Flags whose module is not ported yet raise with a message
+naming ROADMAP.md: `--profile-dir` and `--tensor-parallel` above 1. Left
+out is the JAX CLI's `--batch`, which it never reads. The models are built
+on the card; without one, loading them raises.
 """
 
 from __future__ import annotations
@@ -110,25 +111,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", choices=("bf16", "int8"), default="bf16",
                    help="self-attention KV-cache precision")
     p.add_argument("--draft-model", default=None, metavar="NAME",
-                   help="speculative decoding draft model (not ported yet)")
+                   help="speculative decoding: a smaller model (e.g. "
+                        "large-v3-turbo for large-v3) drafts --spec-k "
+                        "tokens per target verify step; must share the "
+                        "tokenizer")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="converted checkpoint for --draft-model")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens per speculative verify step")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
                    help="shard over N cards (not ported yet; 1 only)")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
 
-_UNPORTED = (
-    ("draft_model", "--draft-model (speculative.py)"),
-    ("profile_dir", "--profile-dir (device traces)"),
-)
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for field, what in _UNPORTED:
-        if getattr(args, field):
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1)")
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile-dir (device traces) is not ported to PyTorch yet "
+            "(ROADMAP.md, Queue 1)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "--tensor-parallel > 1 (parallel/) is not ported to PyTorch yet "
@@ -151,6 +153,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.time()
     model = load_model(args.model, dtype=dtype, quantize=args.quantize,
                        checkpoint=args.checkpoint)
+    draft = None
+    if args.draft_model:
+        from .speculative import check_pair
+
+        draft = load_model(args.draft_model, dtype=dtype, quantize=args.quantize,
+                           checkpoint=args.draft_checkpoint)
+        check_pair(model.cfg, draft.cfg)
     if args.verbose:
         print(f"loaded {args.model} ({model.num_params / 1e6:.0f}M params) "
               f"on {model.device} in {time.time() - t0:.1f}s",
@@ -179,7 +188,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             from .stream import StreamingTranscriber
 
             st = StreamingTranscriber(model, language=args.language or "en",
-                                      beam_size=args.beam_size)
+                                      beam_size=args.beam_size,
+                                      draft_model=draft, spec_k=args.spec_k)
             chunk = 16_000  # 1 s
             for off in range(0, len(audio), chunk):
                 for ev in st.feed(audio[off:off + chunk]):
@@ -229,6 +239,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             suppress_tokens=args.suppress_tokens,
             kv_dtype=args.kv_dtype,
             cache_dtype=args.cache_dtype,
+            draft_model=draft,
+            spec_k=args.spec_k,
         )
         elapsed = time.time() - t0
         out = write_result(result, path, args.output_dir, args.output_format,

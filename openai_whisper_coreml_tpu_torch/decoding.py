@@ -14,12 +14,14 @@ Sampling draws Gumbel-max noise from a counter-based integer hash of
 (seed, row, absolute position, vocab id), so a sampled token is a pure
 function of those, as it is in JAX (`fold_in(fold_in(key, pos), row)`);
 JAX's threefry bits cannot be reproduced, so the two match in distribution
-only. Speculative decoding raises NotImplementedError (see ROADMAP.md).
+only. A draft model (`decode(draft=...)`) routes greedy and sampled rungs
+through speculative decoding (`speculative.py`), as JAX routes them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -234,15 +236,39 @@ def open_unit(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9).float() + 0.5) * 2.0 ** -23
 
 
-def gumbel_noise(seed: int, rows: torch.Tensor, pos: int,
-                 n_vocab: int) -> torch.Tensor:
-    """(len(rows), n_vocab) standard Gumbel noise; entry [i, v] is a pure
-    function of (seed, rows[i], pos, v), the same on the CPU and the card."""
+def _row_keys(seed: int, rows: torch.Tensor, pos: Union[int, torch.Tensor],
+              tag: Optional[int] = None) -> torch.Tensor:
+    """(len(rows),) 32-bit keys of (seed, position, row[, tag]): pos is one
+    int for every row or a (len(rows),) tensor of per-row positions (the
+    speculative loop's rows sit at different positions). A tag splits off
+    an independent stream, as JAX's `fold_in(key, tag)`; untagged keys are
+    the plain loops'."""
     dev = rows.device
+    if torch.is_tensor(pos):
+        pos = pos.to(device=dev, dtype=torch.long)
     key = _mix32(_mix32(torch.tensor(seed & _MASK32, device=dev)) ^ (pos & _MASK32))
     row_key = _mix32(key ^ (rows.long() & _MASK32))
-    bits = _mix32(_mix32(row_key[:, None] ^ torch.arange(n_vocab, device=dev)))
+    if tag is not None:
+        row_key = _mix32(_mix32(row_key ^ 0x68E31DA4) ^ (tag & _MASK32))
+    return row_key
+
+
+def gumbel_noise(seed: int, rows: torch.Tensor, pos: Union[int, torch.Tensor],
+                 n_vocab: int, tag: Optional[int] = None) -> torch.Tensor:
+    """(len(rows), n_vocab) standard Gumbel noise; entry [i, v] is a pure
+    function of (seed, rows[i], the row's position, v[, tag]), the same on
+    the CPU and the card. pos: int, or (len(rows),) per-row positions."""
+    row_key = _row_keys(seed, rows, pos, tag)
+    bits = _mix32(_mix32(row_key[:, None]
+                         ^ torch.arange(n_vocab, device=rows.device)))
     return -torch.log(-torch.log(open_unit(bits)))
+
+
+def uniform_noise(seed: int, rows: torch.Tensor, pos: Union[int, torch.Tensor],
+                  tag: int) -> torch.Tensor:
+    """(len(rows),) uniforms in (0, 1), one per row, from the tagged stream
+    of (seed, row, position): the speculative acceptance test's draws."""
+    return open_unit(_mix32(_row_keys(seed, rows, pos, tag)))
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
@@ -434,14 +460,21 @@ def decode(
     features with from_features=True); one DecodingResult each. Beam search
     when options.beam_size is set at temperature 0; else greedy or sampled
     (seeded by `seed`), with options.best_of candidates per row at
-    temperature > 0 ranked by average log-prob."""
-    if draft is not None:
-        raise NotImplementedError("speculative decoding is not ported to "
-                                  "PyTorch yet (ROADMAP.md, Queue 1)")
+    temperature > 0 ranked by average log-prob.
+
+    draft: a smaller WhisperModel sharing the tokenizer (speculative.py,
+    options.spec_k proposals per verify step). It rides greedy and sampled
+    rungs; beam, best_of fan-outs and an int8 self-cache keep the plain
+    loop. Every greedy or sampled call walls its decode core into
+    speculative.LAST_TIMING (None for beam and best_of), and a speculative
+    one sets speculative.LAST_STATS and adds to speculative.TOTALS."""
+    from . import speculative as spec_mod
+
     cfg = model.cfg
     dev = model.device
     x = torch.as_tensor(mel_or_features, device=dev)
     x = x if x.ndim == 3 else x[None]
+    mel = None if from_features else x
     feats = x if from_features else model.encode(x)
     b = feats.shape[0]
 
@@ -525,10 +558,8 @@ def decode(
 
     suppress_mask, blank_mask = suppress_mask.to(dev), blank_mask.to(dev)
     initial = torch.tensor(initial)
-    core_kw = dict(sample_len=sample_len,
-                   use_timestamps=not options.without_timestamps,
-                   prompt_len=prompt_len, kv_dtype=options.kv_dtype,
-                   cache_dtype=options.cache_dtype)
+    core_kw = dict(use_timestamps=not options.without_timestamps,
+                   prompt_len=prompt_len, kv_dtype=options.kv_dtype)
     use_beam = options.beam_size is not None and options.temperature == 0.0
     if use_beam and per_sample_prompt:
         raise ValueError(
@@ -536,6 +567,12 @@ def decode(
             "only (beam search assumes one shared pad/sot layout)")
     n_cand = (options.best_of
               if options.best_of and options.temperature > 0 else 1)
+    use_draft = (draft is not None and not use_beam and n_cand == 1
+                 and options.cache_dtype != "int8")
+    # the governor's kinetics: the wall starts after the encoder and the
+    # host's prompt work and ends once the tokens are on the host (on the
+    # card an earlier end would time the launch queue, not the decode)
+    t_core0 = time.perf_counter()
     if use_beam:
         from .beam import beam_decode_core, rank_sequences
 
@@ -544,13 +581,29 @@ def decode(
         all_tokens, all_scores, all_lens, no_speech_prob = beam_decode_core(
             model.decoder, feats, initial, suppress_mask, blank_mask,
             max_init_idx, pad, sot_index, beam_size=k,
-            max_candidates=max_candidates, **core_kw)
+            max_candidates=max_candidates, sample_len=sample_len,
+            cache_dtype=options.cache_dtype, **core_kw)
         best = rank_sequences(all_scores, all_lens,
                               options.length_penalty).argmax(dim=1)
         rows = torch.arange(b, device=best.device)
         tokens, sum_lp, n_sampled = (all_tokens[rows, best],
                                      all_scores[rows, best],
                                      all_lens[rows, best])
+    elif use_draft:
+        # greedy rungs verify by argmax agreement, sampled rungs by
+        # rejection sampling, which keeps the plain sampled distribution
+        spec_mod.check_pair(cfg, draft.cfg)
+        feats_d = spec_mod.draft_features(model, draft, mel, feats)
+        # candidate writes overshoot by up to K columns; keep them in context
+        sample_len = min(sample_len,
+                         cfg.n_text_ctx - prompt_len - options.spec_k - 1)
+        (tokens, sum_lp, n_sampled, no_speech_prob, n_iters,
+         n_drafted) = spec_mod.spec_decode_core(
+            model.decoder, draft.decoder, feats, feats_d, initial,
+            suppress_mask, blank_mask, max_init_idx, pad, sot_index,
+            sample_len=sample_len, spec_k=options.spec_k,
+            sampled=options.temperature > 0, temperature=options.temperature,
+            seed=seed, **core_kw)
     else:
         # best_of: independent sampled candidates per row, ranked by average
         # log-prob (openai semantics; only meaningful at temperature > 0)
@@ -563,12 +616,26 @@ def decode(
         tokens, sum_lp, n_sampled, no_speech_prob = greedy_decode_core(
             model.decoder, feats, initial, suppress_mask, blank_mask,
             max_init_idx, pad, sot_index, temperature=options.temperature,
-            seed=seed, **core_kw)
+            seed=seed, sample_len=sample_len,
+            cache_dtype=options.cache_dtype, **core_kw)
 
     tokens = tokens.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
     n_sampled = n_sampled.cpu().numpy()
     no_speech_prob = no_speech_prob.cpu().numpy()
+    wall_s = time.perf_counter() - t_core0
+    path, stats = None, None
+    if use_draft:
+        n_iters = n_iters.cpu().numpy()
+        stats = spec_mod.spec_stats(n_sampled, n_iters, n_drafted.cpu().numpy())
+        path, units = "spec", int(np.max(n_iters))
+    elif not use_beam and n_cand == 1:
+        # the single-candidate loop, greedy or sampled: the same kinetics
+        path, units = "plain", int(np.max(n_sampled))
+    spec_mod.publish(stats, None if path is None else {
+        "path": path, "wall_s": wall_s, "units": units, "batch": b,
+        "k": options.spec_k if path == "spec" else None,
+        "temperature": float(options.temperature)})
     if n_cand > 1:
         tokens, sum_lp, n_sampled, no_speech_prob = rank_best_of(
             tokens, sum_lp, n_sampled, no_speech_prob, n_cand)

@@ -12,7 +12,8 @@ dtype or int8 (`QuantCrossKV`).
 
 Single-token steps on the card run the Hopper decode kernels: `sqa_int8`
 (K6) for int8 cross-attention and the int8 self-cache, `sqa_self` (K3) for
-a bf16 self-cache when `self_kernel=True`. Prefill (T > 1) and every CPU
+a bf16 self-cache when `self_kernel=True`. Prefill and the speculative
+verify step (T > 1) and every CPU
 step keep the JAX package's math: inline dequantisation, and K3's plain
 version only with `self_kernel=True`.
 
@@ -251,37 +252,52 @@ def final_logits(decoder: TextDecoder, x: torch.Tensor) -> torch.Tensor:
 CacheIndex = Union[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def _cache_index(pos_offset: Position, cols: int) -> CacheIndex:
+def _cache_index(pos_offset: Position, cols: int, t: int = 1) -> CacheIndex:
     """Where a step writes its K/V, computed once per step: the first
     column (lockstep), or for (B,) per-row positions (rows, each row's
-    column clamped into the cache, (B, 1, 1) True where the column lies
-    inside the cache)."""
+    columns clamped into the cache, True where a column lies inside the
+    cache). T == 1: rows (B,), columns (B,), inside (B, 1, 1). T > 1 (the
+    speculative verify step): rows (B, 1), columns (B, T), inside
+    (B, T, 1, 1)."""
     if not torch.is_tensor(pos_offset):
         return pos_offset
     rows = torch.arange(pos_offset.shape[0], device=pos_offset.device)
-    return (rows, pos_offset.clamp(max=cols - 1),
-            (pos_offset < cols).reshape(-1, 1, 1))
+    if t == 1:
+        return (rows, pos_offset.clamp(max=cols - 1),
+                (pos_offset < cols).reshape(-1, 1, 1))
+    col = pos_offset[:, None] + torch.arange(t, device=pos_offset.device)
+    return rows[:, None], col.clamp(max=cols - 1), (col < cols)[..., None, None]
 
 
 def _cache_write(buf: torch.Tensor, l: int, val: torch.Tensor,
                  where: CacheIndex) -> None:
     """Write val (B, *, *, T) into layer l of buf (L, B, *, *, C) in place,
-    at `_cache_index(pos_offset, C)`.
+    at `_cache_index(pos_offset, C, T)`.
 
-    Lockstep: columns [pos_offset, pos_offset + T). Per-row positions
-    (T == 1): row b at column pos_offset[b]; a row whose column lies past
-    the cache (a finished continuous-batching row at total_len == C) keeps
-    its contents, as JAX's out-of-range scatter drops the write. The two
+    Lockstep: columns [pos_offset, pos_offset + T). Per-row positions: row b
+    at columns [pos_offset[b], pos_offset[b] + T); a column past the cache
+    (a finished continuous-batching row at total_len == C) keeps the
+    cache's contents, as JAX's out-of-range scatter drops the write. The
     advanced indices are separated by slices, so the indexed view is
-    (B, *, *).
+    (B, *, *) for T == 1 and (B, T, *, *) for T > 1. Columns past the
+    cache all clamp to C - 1; each of them writes what the row's column
+    C - 1 gets, so the duplicate writes agree.
     """
     if not isinstance(where, tuple):
         buf[l, ..., where:where + val.shape[-1]] = val
         return
     rows, col, inside = where
-    buf[l, rows, :, :, col] = torch.where(inside, val[..., 0],
-                                          buf[l, rows, :, :, col])
-
+    if col.ndim == 1:
+        buf[l, rows, :, :, col] = torch.where(inside, val[..., 0],
+                                              buf[l, rows, :, :, col])
+        return
+    t = col.shape[1]
+    new = torch.where(inside, val.permute(0, 3, 1, 2), buf[l, rows, :, :, col])
+    # first j whose column clamps to C - 1; later ones repeat its value
+    first_last = (buf.shape[-1] - 1 - col[:, :1]).clamp(0, t - 1)
+    src = torch.minimum(torch.arange(t, device=col.device)[None], first_last)
+    new = new.gather(1, src[..., None, None].expand_as(new))
+    buf[l, rows, :, :, col] = new
 
 def _cross_attn(blk: DecoderBlock, x: torch.Tensor,
                 cross_kv: Union[CrossKV, QuantCrossKV], l: int,
@@ -306,7 +322,7 @@ def decode_step(
     tokens: torch.Tensor,  # (B, T) int64 — T tokens starting at pos_offset
     cross_kv: Union[CrossKV, QuantCrossKV],
     cache: Union[KVCache, QuantKVCache],
-    pos_offset: Position,  # int (lockstep) or (B,) per-row positions, T == 1
+    pos_offset: Position,  # int (lockstep) or (B,) per-row positions
     valid_from: Union[int, torch.Tensor] = 0,  # slots [0, valid_from) are left-padding
     self_kernel: bool = False,  # single-token self-attention through K3
     # (`ops.sqa_self`: the kernel on the card, its plain version on the CPU),
@@ -315,23 +331,26 @@ def decode_step(
     """Incremental decode: (logits (B, T, vocab) fp32, cache). The cache's
     columns [pos_offset, pos_offset + T) are written in place.
 
-    With a (B,) pos_offset each row decodes at its own position (continuous
-    batching); that needs T == 1. Single-token steps on CUDA tensors run the
-    decode kernels: K6 for int8 cross K/V and for a QuantKVCache, K3 for a
-    KVCache when self_kernel is set.
+    With a (B,) pos_offset each row decodes at its own position:
+    continuous batching (T == 1), or the speculative verify step (T = K+1
+    candidate tokens at row-independent columns, attended in plain PyTorch
+    with the per-row causal mask, as JAX computes it in XLA). Single-token
+    steps on CUDA tensors run the decode kernels: K6 for int8 cross K/V and
+    for a QuantKVCache, K3 for a KVCache when self_kernel is set.
     """
-    x = embed_tokens(decoder, tokens, pos_offset, valid_from)
-    b, t, _ = x.shape
-    dev = x.device
+    b, t = tokens.shape
     rowpos = torch.is_tensor(pos_offset)
-    if rowpos and (t != 1 or tuple(pos_offset.shape) != (b,)):
-        raise ValueError(f"per-row positions need single-token decode and a "
-                         f"({b},) pos_offset; got T={t}, "
+    if rowpos and tuple(pos_offset.shape) != (b,):
+        raise ValueError(f"per-row positions need a ({b},) pos_offset; got "
                          f"{tuple(pos_offset.shape)}")
+    if rowpos and t != 1 and self_kernel:
+        raise ValueError("self_kernel requires single-token decode")
+    x = embed_tokens(decoder, tokens, pos_offset, valid_from)
+    dev = x.device
     quant_self = isinstance(cache, QuantKVCache)
     on_card = t == 1 and dev.type == "cuda"
     c = cache[0].shape[-1]
-    where = _cache_index(pos_offset, c)
+    where = _cache_index(pos_offset, c, t)
     # the kernels' entries check the caches and bounds once per step
     self_attend = cross_attend = None
     if quant_self and on_card:

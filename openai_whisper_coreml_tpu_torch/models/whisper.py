@@ -22,15 +22,31 @@ class WhisperModel(nn.Module):
     log_mel, encode, logits, detect_language, decode and transcribe.
     `alignment_heads`: the (n_text_layer, n_text_head) bool mask of the
     heads word timestamps align with, from a checkpoint's metadata; None
-    takes `timing.default_alignment_heads`."""
+    takes `timing.default_alignment_heads`.
+
+    `draft`: an optional paired draft model sharing the tokenizer (e.g.
+    large-v3-turbo for large-v3, `speculative.check_pair`); with one,
+    batched serving's greedy and sampled rungs run speculative decoding.
+    It is not a submodule (its weights are not this model's), and setting
+    it drops the serving acceptance governor (`serve.spec_governor`): a new
+    pairing is new evidence."""
 
     def __init__(self, cfg: WhisperConfig, params: Mapping[str, Any],
-                 alignment_heads: Optional[np.ndarray] = None):
+                 alignment_heads: Optional[np.ndarray] = None,
+                 draft: Optional["WhisperModel"] = None):
         super().__init__()
         self.cfg = cfg
         self.encoder = AudioEncoder(cfg, params["encoder"])
         self.decoder = dec_mod.TextDecoder(cfg, params["decoder"])
         self.alignment_heads = alignment_heads
+        self.draft = draft
+
+    def __setattr__(self, name: str, value) -> None:
+        if name == "draft":
+            self.__dict__.pop("_spec_governor", None)
+            object.__setattr__(self, name, value)
+            return
+        super().__setattr__(name, value)
 
     @property
     def device(self) -> torch.device:

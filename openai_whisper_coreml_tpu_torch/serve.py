@@ -23,12 +23,15 @@ reassembles one openai-schema result per request:
   * word timestamps (`word_timestamps=True`): after the seek chains are
     verified, each request's decoded windows are encoded again in batches
     of `batch_size` and aligned by `timing.find_word_alignment_batch`,
-    whichever scheduler decoded them.
+    whichever scheduler decoded them;
+  * speculative decoding when the model carries a paired draft
+    (`model.draft`): under the static scheduler the draft rides the greedy
+    and the sampled rungs, subject to the acceptance governor
+    (`spec_governor`, `speculative.SpecGovernor`); beam rungs and the
+    continuous schedulers keep the plain loop, as in JAX.
 
 Batches are not padded to `batch_size` (JAX pads them to reuse one compiled
-graph; PyTorch runs eagerly), the word-timestamp encodes included. Left out
-of `ServeOptions`: `spec_k`, `spec_fallback` and `spec_fallback_threshold`,
-which act only with a draft model (speculative decoding is not ported).
+graph; PyTorch runs eagerly), the word-timestamp encodes included.
 """
 
 from __future__ import annotations
@@ -41,11 +44,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import speculative as spec_mod
 from .config import FRAMES_PER_SECOND, HOP_LENGTH, N_FRAMES, SAMPLE_RATE
 from .decoding import DecodingOptions, DecodingResult, decode
 from .transcribe import Segment, seek_advance, window_segment_spans
 
 log = logging.getLogger(__name__)
+
+
+def spec_governor(model, options: "ServeOptions") -> spec_mod.SpecGovernor:
+    """The model's acceptance governor, created on first use.
+
+    Kept on the model, so the verdict persists across transcribe_batch
+    calls (the HTTP worker calls once per micro-batch); setting
+    `model.draft` drops it, since a new pairing is new evidence. The
+    threshold is fixed at creation from the first call's options: an
+    explicit `spec_fallback_threshold` is pinned, else the H100 prior at
+    this batch calibrates itself from walled decodes."""
+    gov = getattr(model, "_spec_governor", None)
+    if gov is None:
+        thr = options.spec_fallback_threshold
+        pinned = thr is not None
+        if thr is None:
+            thr = spec_mod.break_even_tokens_per_iter(
+                options.spec_k, batch=options.batch_size)
+        gov = spec_mod.SpecGovernor(threshold=thr, pinned=pinned)
+        model._spec_governor = gov
+    return gov
 
 
 @dataclasses.dataclass
@@ -80,6 +105,16 @@ class ServeOptions:
     # energy-VAD window gating (vad.py): windows without detected speech
     # never reach the decoder and act as a no-speech skip
     vad_filter: bool = False
+    # speculative decoding with a paired draft (model.draft): proposals per
+    # verify step on the static scheduler's non-beam rungs
+    spec_k: int = 4
+    # the acceptance governor withholds the draft while tokens/iteration
+    # sit below the break-even (spec_fallback=False: the draft always
+    # runs); the threshold defaults to the H100 prior at batch_size
+    # (speculative.break_even_tokens_per_iter), which then calibrates
+    # itself; an explicit value is pinned
+    spec_fallback: bool = True
+    spec_fallback_threshold: Optional[float] = None
 
     def __post_init__(self):
         # a scalar temperature is the one-rung ladder
@@ -276,6 +311,7 @@ def _decode_windows_static(model, windows: List[_Window],
         kv_dtype=options.kv_dtype,
         cache_dtype=options.cache_dtype,
         suppress_tokens=options.suppress_tokens,
+        spec_k=options.spec_k,
     )
     if prompt_tokens is not None and options.beam_size is not None:
         # beam search takes one shared pad/sot layout per decode call:
@@ -321,8 +357,19 @@ def _decode_window_batches(model, windows: List[_Window], options: ServeOptions,
             rung = dict(chunk_opts)
             if t > 0:
                 rung["beam_size"] = None
-            res = decode(model, batch_mels,
-                         DecodingOptions(temperature=float(t), **rung))
+            # a paired draft rides every non-beam rung: greedy rungs verify
+            # by argmax agreement, sampled ones by rejection sampling
+            # (decode routes best_of fan-outs to the plain loop). The
+            # governor also takes the plain walls (withheld batches; beam
+            # rungs publish none) for its live break-even
+            paired = getattr(model, "draft", None)
+            gov = (spec_governor(model, options)
+                   if paired is not None and options.spec_fallback else None)
+            opts = DecodingOptions(temperature=float(t), **rung)
+            res = spec_mod.governed_decode(
+                gov, paired if rung.get("beam_size") is None else None,
+                lambda d: decode(model, batch_mels, opts, draft=d),
+                sampled=float(t) > 0)
             still: List[int] = []
             for i in pending:
                 if _needs_fallback(res[i], options):

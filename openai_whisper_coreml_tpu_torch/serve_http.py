@@ -32,8 +32,13 @@ Threads: the batch worker decodes while handler threads run /detect and
 /stream decodes of their own on the same model. PyTorch does not serialise
 them as JAX does; they share the device's default stream, so the card runs
 them in the order they are enqueued, and every kernel wrapper counts its
-launches under a lock. Speculative decoding (`--draft-model`) and tensor
-parallelism are not ported: they raise NotImplementedError.
+launches under a lock. With a paired draft (`--draft-model`, or
+`model.draft` in-process) batches decode speculatively under the model's
+acceptance governor and /stream ticks under one governor per stream;
+/metrics then carries the speculative counters and the governor's gauges,
+each batch's read as differences of `speculative.TOTALS`. Tensor
+parallelism is not ported: `--tensor-parallel` above 1 raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -109,6 +114,7 @@ class WhisperHTTPServer:
     # -- batching worker ----------------------------------------------------
 
     def _drain(self) -> None:
+        from . import speculative
         from .serve import ServeOptions, transcribe_batch
 
         while not self._stop.is_set():
@@ -142,6 +148,7 @@ class WhisperHTTPServer:
                 opts = {**self.default_options, **json.loads(opts_key)}
                 t0 = time.monotonic()
                 audio_s = sum(len(j.audio) for j in group) / 16_000.0
+                spec_before = dict(speculative.TOTALS)
                 try:
                     results = transcribe_batch(
                         self.model, [j.audio for j in group],
@@ -162,6 +169,7 @@ class WhisperHTTPServer:
                     self.metrics.observe("batch_latency_s", elapsed)
                     if audio_s and elapsed > 0:
                         self.metrics.observe("batch_rtfx", audio_s / elapsed)
+                    self._spec_metrics(speculative, spec_before)
                     log.info("batch done %s", kv(
                         requests=len(group), audio_s=round(audio_s, 2),
                         latency_s=round(elapsed, 3),
@@ -171,6 +179,39 @@ class WhisperHTTPServer:
                 self.metrics.set_gauge("queue_depth", self._queue.qsize())
                 for j in group:
                     j.done.set()
+
+    def _spec_metrics(self, speculative, before: Dict[str, int]) -> None:
+        """One batch's speculative counters and gauges: differences of
+        `speculative.TOTALS` around the batch (the /stream handlers'
+        decodes that ran meanwhile count in too), and the model's
+        acceptance governor's verdicts and live break-even."""
+        d_iters = speculative.TOTALS["iters"] - before["iters"]
+        if d_iters > 0:  # this batch ran speculative decodes
+            d_tok = speculative.TOTALS["tokens"] - before["tokens"]
+            d_drf = speculative.TOTALS["drafted"] - before["drafted"]
+            self.metrics.inc("spec_tokens", d_tok)
+            self.metrics.inc("spec_iters", d_iters)
+            self.metrics.set_gauge("spec_tokens_per_iter", d_tok / d_iters)
+            if d_drf > 0:
+                self.metrics.set_gauge("spec_acceptance_rate",
+                                       (d_tok - d_iters) / d_drf)
+        gov = getattr(self.model, "_spec_governor", None)
+        if gov is not None:  # the acceptance governor's verdict
+            self.metrics.set_gauge("spec_draft_active",
+                                   0.0 if gov.disabled else 1.0)
+            self.metrics.set_gauge("spec_draft_active_sampled",
+                                   0.0 if gov.disabled_sampled else 1.0)
+            # the threshold in force and the two walled cost terms behind
+            # it (absent until each has evidence)
+            self.metrics.set_gauge("spec_governor_threshold", gov.threshold)
+            self.metrics.set_gauge("spec_governor_calibrated",
+                                   1.0 if gov.calibrated else 0.0)
+            if gov.live_iter_ms is not None:
+                self.metrics.set_gauge("spec_live_ms_per_iter",
+                                       gov.live_iter_ms)
+            if gov.live_tok_ms is not None:
+                self.metrics.set_gauge("spec_live_ms_per_token",
+                                       gov.live_tok_ms)
 
     def _warmup(self) -> None:
         """Warm the serving path before real traffic: one full-batch
@@ -366,7 +407,11 @@ class WhisperHTTPServer:
                     server.model, language=qs.get("language", "en"),
                     task=qs.get("task", "transcribe"),
                     vad_gate=qs.get("vad") in ("1", "true"),
-                    decode_interval=float(qs.get("decode_interval", "1.0")))
+                    decode_interval=float(qs.get("decode_interval", "1.0")),
+                    # the server's paired draft speeds the tick decodes; the
+                    # stream's own governor handles low acceptance
+                    draft_model=getattr(server.model, "draft", None),
+                    spec_k=int(server.default_options.get("spec_k", 4)))
                 self.send_response(200)
                 self.send_header("Content-Type", "application/x-ndjson")
                 self._cors()
@@ -709,12 +754,15 @@ def main(argv=None) -> int:
                     help="run one batch at startup; /readyz returns 503 "
                          "until done")
     ap.add_argument("--draft-model", default=None, metavar="NAME",
-                    help="speculative decoding draft model (not ported yet)")
+                    help="paired draft for speculative decoding on the static "
+                         "scheduler's greedy and sampled rungs (e.g. "
+                         "large-v3-turbo for large-v3; must share the "
+                         "tokenizer)")
+    ap.add_argument("--draft-checkpoint", default=None,
+                    help="converted checkpoint for --draft-model")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft proposals per speculative verify step")
     args = ap.parse_args(argv)
-    if args.draft_model:
-        raise NotImplementedError(
-            "--draft-model (speculative.py) is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "--tensor-parallel > 1 (parallel/) is not ported to PyTorch yet "
@@ -724,12 +772,20 @@ def main(argv=None) -> int:
 
     model = load_model(args.model, checkpoint=args.checkpoint,
                        quantize=args.quantize)
+    if args.draft_model:
+        from .speculative import check_pair
+
+        draft = load_model(args.draft_model, checkpoint=args.draft_checkpoint,
+                           quantize=args.quantize)
+        check_pair(model.cfg, draft.cfg)
+        model.draft = draft
     server = WhisperHTTPServer(model, args.host, args.port,
                                batch_size=args.batch_size,
                                allow_origin=args.allow_origin,
                                warmup=args.warmup,
                                default_options={"kv_dtype": args.kv_dtype,
-                                                "scheduler": args.scheduler})
+                                                "scheduler": args.scheduler,
+                                                "spec_k": args.spec_k})
     server.start()
     print(f"serving {args.model} on {args.host}:{server.port} "
           f"({model.device})", flush=True)

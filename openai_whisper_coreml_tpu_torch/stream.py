@@ -16,8 +16,10 @@ after each trim).
 On the card every tick's log-mel runs K4 and its encode K1; each decode
 step runs K3 over the bf16 self-attention cache. Streaming decodes use a
 bf16 cross-KV and cache, as JAX's do, so they never reach K6.
-`draft_model` (speculative decoding) is not ported: a draft raises
-NotImplementedError. `MultiStreamTranscriber` decodes the due streams'
+`draft_model` makes the tick decodes speculative (`speculative.py`; the
+draft's single-token steps run K3 over its bf16 cache), under one
+acceptance governor per stream, or one per tier for
+`MultiStreamTranscriber`. `MultiStreamTranscriber` decodes the due streams'
 windows as one batch without padding it to the stream count (JAX pads to
 reuse one compiled graph; PyTorch runs eagerly, and rows do not interact).
 """
@@ -29,6 +31,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import speculative as spec_mod
 from .audio import pad_or_trim
 from .config import N_SAMPLES, SAMPLE_RATE
 from .decoding import DecodingOptions, decode
@@ -38,11 +41,21 @@ from .decoding import DecodingOptions, decode
 _SAMPLE_BUCKETS = (32, 64, 128, 224)
 
 
-def _no_draft(draft_model) -> None:
-    if draft_model is not None:
-        raise NotImplementedError(
-            "draft_model: speculative decoding (speculative.py) is not ported "
-            "to PyTorch yet (ROADMAP.md, Queue 1)")
+def _governor(draft_model, spec_k: int, batch: int):
+    """The acceptance governor of a stream (batch 1) or a tier."""
+    if draft_model is None:
+        return None
+    return spec_mod.SpecGovernor(
+        threshold=spec_mod.break_even_tokens_per_iter(spec_k, batch=batch))
+
+
+def _governed_decode(model, mel, options, draft, gov, sampled: bool = False):
+    """decode() under the stream's governor; without a draft the call is
+    the plain one, decode(model, mel, options)."""
+    return spec_mod.governed_decode(
+        gov, draft, lambda d: (decode(model, mel, options) if d is None
+                               else decode(model, mel, options, draft=d)),
+        sampled=sampled)
 
 
 @dataclasses.dataclass
@@ -89,9 +102,10 @@ class StreamingTranscriber:
         vad_gate: skip a due tick when the rolling buffer holds no speech by
         the energy VAD (vad.py); the tick fires as soon as speech appears.
 
-        draft_model must be None (speculative decoding is not ported);
-        spec_k is accepted for JAX's signature and has no effect."""
-        _no_draft(draft_model)
+        draft_model: speculative decoding for the tick decodes (spec_k
+        proposals per verify step), under this stream's acceptance governor:
+        content the draft cannot predict would otherwise pay the
+        below-break-even cost on every tick."""
         if agreement < 1:
             raise ValueError("agreement must be >= 1")
         self.model = model
@@ -100,6 +114,8 @@ class StreamingTranscriber:
         self.decode_interval = decode_interval
         self.max_tokens_per_second = max_tokens_per_second
         self.vad_gate = vad_gate
+        self.draft_model = draft_model
+        self._spec_gov = _governor(draft_model, spec_k, batch=1)
         self.opts = dict(
             task=task,
             language=language,
@@ -145,8 +161,12 @@ class StreamingTranscriber:
     def _decode_window(self) -> List[int]:
         mel = self.model.log_mel(pad_or_trim(self._buffer))
         opts = dict(self.opts, sample_len=self._tick_sample_len())
-        res = decode(self.model, mel[None],
-                     DecodingOptions(prompt=self._prompt or None, **opts))[0]
+        # one fixed temperature per stream: every tick is one regime
+        res = _governed_decode(
+            self.model, mel[None],
+            DecodingOptions(prompt=self._prompt or None, **opts),
+            self.draft_model, self._spec_gov,
+            sampled=float(opts["temperature"] or 0.0) > 0)[0]
         return res.tokens
 
     @staticmethod
@@ -294,8 +314,9 @@ class MultiStreamTranscriber:
                  vad_gate: bool = False,
                  draft_model=None,
                  spec_k: int = 4) -> None:
-        """draft_model must be None (speculative decoding is not ported)."""
-        _no_draft(draft_model)
+        """draft_model: speculative decoding for the batched tick decodes,
+        under one tier-level acceptance governor (the batch mixes streams,
+        so its evidence is the tier's)."""
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         self.model = model
@@ -303,6 +324,8 @@ class MultiStreamTranscriber:
         self.condition_on_committed_text = condition_on_committed_text
         self.task = task
         self.spec_k = spec_k
+        self.draft_model = draft_model
+        self._spec_gov = _governor(draft_model, spec_k, batch=n_streams)
         self.streams = [
             StreamingTranscriber(
                 model, language=language, task=task, agreement=agreement,
@@ -337,9 +360,10 @@ class MultiStreamTranscriber:
         mel = self.model.log_mel(audio)
         prompt_opt = (prompts if self.condition_on_committed_text and any(prompts)
                       else None)
-        res = decode(self.model, mel, DecodingOptions(
+        res = _governed_decode(self.model, mel, DecodingOptions(
             task=self.task, language=self.language, without_timestamps=True,
-            prompt=prompt_opt, spec_k=self.spec_k, sample_len=sample_len))
+            prompt=prompt_opt, spec_k=self.spec_k, sample_len=sample_len),
+            self.draft_model, self._spec_gov)
 
         events: dict = {}
         for i, r in zip(due, res):

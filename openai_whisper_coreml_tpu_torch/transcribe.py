@@ -12,8 +12,11 @@ its features. With word timestamps the window seeks from the last word's
 end, and `hallucination_silence_threshold` skips the silence around
 segments that look like hallucinations (openai's rules).
 
-Speculative decoding with a draft model is not ported yet: it needs
-`speculative.py` (ROADMAP.md, Queue 1).
+With `draft_model` every greedy and sampled rung decodes speculatively
+(`speculative.py`), under one acceptance governor per call that withholds
+a draft whose acceptance sits below break-even; `spec_fallback=False` in
+the decode options turns the governor off, and `spec_k` sets the
+proposals per verify step.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from . import speculative as spec_mod
 from .audio import load_audio, pad_or_trim
 from .config import (
     APPEND_PUNCTUATIONS,
@@ -175,7 +179,7 @@ def transcribe(
     vad_parameters=None,  # vad.VadOptions
     progress_callback=None,  # fn(seconds_done: float, total_seconds: float)
     verbose: Optional[bool] = None,
-    draft_model=None,
+    draft_model=None,  # a smaller WhisperModel sharing the tokenizer
     **decode_options,
 ) -> Dict[str, Any]:
     """Transcribe (or translate) audio of any length; returns {"text",
@@ -190,13 +194,18 @@ def transcribe(
     only with word timestamps, as in openai; prepend/append_punctuations
     are for word timestamps too.
     decode_options: the remaining DecodingOptions fields (beam_size,
-    best_of, patience, length_penalty, sample_len, kv_dtype, ...).
+    best_of, patience, length_penalty, sample_len, kv_dtype, spec_k, ...),
+    and spec_fallback (default True: the draft's acceptance governor).
     """
-    if draft_model is not None:
-        raise NotImplementedError(
-            "draft_model (speculative decoding) needs speculative.py, not "
-            "ported to PyTorch yet (ROADMAP.md, Queue 1)")
     cfg = model.cfg
+    # one acceptance governor per call: long audio the draft cannot predict
+    # would otherwise pay the below-break-even cost on every window
+    spec_gov = None
+    spec_fallback = bool(decode_options.pop("spec_fallback", True))
+    if draft_model is not None and spec_fallback:
+        spec_gov = spec_mod.SpecGovernor(
+            threshold=spec_mod.break_even_tokens_per_iter(
+                int(decode_options.get("spec_k", 4)), batch=1))
 
     if isinstance(audio, str):
         audio = load_audio(audio)
@@ -300,7 +309,14 @@ def transcribe(
                 without_timestamps=without_timestamps,
                 **rung_options,
             )
-            result = decode(model, segment_feats, opts, from_features=True)[0]
+            # the draft rides greedy and sampled rungs (decode routes
+            # best_of fan-outs and beam to the plain loop), each regime
+            # judged by the governor apart
+            result = spec_mod.governed_decode(
+                spec_gov, draft_model,
+                lambda d: decode(model, segment_feats, opts, from_features=True,
+                                 draft=d),
+                sampled=float(t) > 0)[0]
 
             needs_fallback = False
             if (compression_ratio_threshold is not None

@@ -138,9 +138,39 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
     (["--profile-dir", "trace"], "profile"),
     (["--tensor-parallel", "2"], "parallel"),
 ])
-def test_cli_unported_flags_raise(flags, what):
-    with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
-        tcli.main(["a.wav"] + flags)
+def test_cli_unported_flags_raise(flags, what, models, wav, tmp_path, monkeypatch):
+    """--profile-dir and --tensor-parallel > 1 raise naming ROADMAP.md.
+    --draft-model is ported: the draft loads through load_model with the
+    target's dtype and quantisation and --draft-checkpoint, and the file
+    decodes speculatively to the plain run's transcript."""
+    if what != "speculative.py":
+        with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
+            tcli.main(["a.wav"] + flags)
+        return
+    from openai_whisper_coreml_tpu_torch import speculative
+
+    _, tm = models
+    loads = []
+
+    def fake_load(name, **kw):
+        loads.append((name, kw))
+        return tm
+
+    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model", fake_load)
+    args = [wav, "--language", "en", "--temperature-increment-on-fallback", "0",
+            "--output-format", "json", "--spec-k", "3"]
+    assert tcli.main(args + ["-o", str(tmp_path / "plain")]) == 0
+    before = speculative.TOTALS["iters"]
+    assert tcli.main(args + flags + ["--draft-checkpoint", "d.safetensors",
+                                     "-o", str(tmp_path / "spec")]) == 0
+    assert speculative.TOTALS["iters"] > before
+    assert [name for name, _ in loads] == ["tiny", "tiny", "tiny"]
+    assert loads[2][1]["checkpoint"] == "d.safetensors"
+    plain = json.loads((tmp_path / "plain" / "clip.json").read_text())
+    spec = json.loads((tmp_path / "spec" / "clip.json").read_text())
+    assert spec["text"] == plain["text"]
+    assert [s["tokens"] for s in spec["segments"]] == [
+        s["tokens"] for s in plain["segments"]]
 
 
 @pytest.mark.parametrize("fmt", ["srt", "vtt", "json"])
@@ -270,13 +300,12 @@ def test_build_model_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_cli_flags_match_jax():
     """The port takes the JAX CLI's flags with their defaults, except
-    `--batch`, which the JAX CLI accepts and never reads, and the two flags
-    that only `--draft-model` reads."""
+    `--batch`, which the JAX CLI accepts and never reads."""
     def flags(parser):
         return {a.dest: a.default for a in parser._actions if a.dest != "help"}
 
     ours, ref = flags(tcli.build_parser()), flags(jcli.build_parser())
-    assert set(ref) - set(ours) == {"batch", "draft_checkpoint", "spec_k"}
+    assert set(ref) - set(ours) == {"batch"}
     assert set(ours) <= set(ref)
     assert {k: ours[k] for k in ours} == {k: ref[k] for k in ours}
 
@@ -284,10 +313,14 @@ def test_cli_flags_match_jax():
 @pytest.mark.parametrize("flags", [["--spec-k", "3"],
                                    ["--draft-checkpoint", "d.safetensors"]])
 def test_cli_rejects_speculative_only_flags(flags, capsys):
-    """Flags that only a draft model reads are refused, not ignored."""
-    with pytest.raises(SystemExit):
-        tcli.main(["a.wav"] + flags)
-    assert "unrecognized arguments" in capsys.readouterr().err
+    """The flags a draft model reads are taken, with JAX's values, since
+    speculative decoding is ported."""
+    ours = vars(tcli.build_parser().parse_args(["a.wav"] + flags))
+    ref = vars(jcli.build_parser().parse_args(["a.wav"] + flags))
+    assert {k: ours[k] for k in ("spec_k", "draft_checkpoint", "draft_model")} == {
+        k: ref[k] for k in ("spec_k", "draft_checkpoint", "draft_model")}
+    assert ours["spec_k"] == (3 if "--spec-k" in flags else 4)
+    assert not capsys.readouterr().err
 
 
 @pytest.mark.parametrize("rate", [16000, 8000, 44100])

@@ -122,9 +122,14 @@ def test_per_row_positions_match_jax(pair, cache_dtype):
         _, _, jcache, tcache = _step(pair, jx, tx, jcache, tcache,
                                      _tokens(jcfg, 3, 1, 13 + i), pos + i, vf)
     _assert_caches_equal(jcache, tcache)
+    # two tokens a row at per-row positions is the speculative verify step,
+    # ported since; a pos_offset that is not (B,) is still refused
+    _, _, jcache, tcache = _step(pair, jx, tx, jcache, tcache,
+                                 _tokens(jcfg, 3, 2, 17), pos + 3, vf)
+    _assert_caches_equal(jcache, tcache)
     with pytest.raises(ValueError, match="per-row"):
         tdec.decode_step(pair[2].decoder, torch.zeros(3, 2, dtype=torch.long), tx,
-                         tcache, torch.tensor([1, 2, 3]))
+                         tcache, torch.tensor([1, 2]))
 
 
 @pytest.mark.parametrize("valid_from", ["scalar", "per_row"])

@@ -1,5 +1,5 @@
 """Port decode()/detect_language against the JAX package (fp32, same
-weights), plus the options the port does not serve yet."""
+weights), and the options both packages take."""
 
 import jax
 import numpy as np
@@ -134,8 +134,8 @@ def test_logit_rules_match_jax(use_timestamps, step):
 def test_unported_options_raise(kw):
     """Beam, sampling, best_of and the int8 self-attention cache are ported
     in every decoding mode and take the JAX package's values; the cache
-    dtype is validated as JAX validates it. Only speculative decoding still
-    raises (test_decode_with_draft_raises)."""
+    dtype is validated as JAX validates it. Speculative decoding is ported
+    too (test_decode_with_draft_raises)."""
     for cache_dtype in ("bf16", "int8"):
         ours = tdecoding.DecodingOptions(cache_dtype=cache_dtype, **kw)
         ref = jdecoding.DecodingOptions(cache_dtype=cache_dtype, **kw)
@@ -156,6 +156,20 @@ def test_option_validation_matches_jax():
 
 
 def test_decode_with_draft_raises(models):
-    _, tm, mel = models
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tdecoding.decode(tm, mel, draft=tm)
+    """A draft no longer raises: speculative decoding is ported. With the
+    model as its own draft, decode gives the plain loop's tokens and JAX's
+    speculative decode's, and publishes a speculative wall and its stats."""
+    from openai_whisper_coreml_tpu_torch import speculative
+
+    jm, tm, mel = models
+    kw = dict(language="en", sample_len=24, spec_k=3)
+    plain = tdecoding.decode(tm, mel, tdecoding.DecodingOptions(**kw))
+    assert speculative.LAST_TIMING["path"] == "plain"
+    ours = tdecoding.decode(tm, mel, tdecoding.DecodingOptions(**kw), draft=tm)
+    assert speculative.LAST_TIMING["path"] == "spec"
+    assert speculative.LAST_STATS["acceptance_rate"] > 0.85
+    ref = jdecoding.decode(jm, mel, jdecoding.DecodingOptions(**kw), draft=jm)
+    assert [r.tokens for r in ours] == [r.tokens for r in plain]
+    assert [r.tokens for r in ours] == [r.tokens for r in ref]
+    for a, b in zip(ours, ref):
+        assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=1e-4)

@@ -787,6 +787,84 @@ def test_alignment_pass_on_card_matches_cpu():
 
 
 @pytest.mark.cuda
+def test_speculative_steps_on_card():
+    """Speculative decoding's steps on the card. The draft's single-token
+    steps at per-row positions (bf16 cache, int8 cross-KV) launch K3 and K6
+    once per layer and give the CPU's plain versions' logits within bf16
+    tolerance; the verify step (T = K+1 = 5 at per-row positions, one row
+    running past the cache) launches no kernel and matches the CPU, in bf16
+    within bf16 tolerance and in fp32 within 1e-4; an fp32 speculative
+    greedy decode gives the CPU's tokens and counts."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from openai_whisper_coreml_tpu_torch import speculative
+
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2, n_audio_ctx=64)
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn(3, 64, cfg.n_audio_state, generator=g)
+    prompt = torch.randint(0, cfg.timestamp_begin, (3, 6), generator=g)
+    verify = torch.randint(0, cfg.timestamp_begin, (3, 5), generator=g)
+    pos = torch.tensor([6, 9, 14])
+    # bf16: logits of magnitude 2-4 have an ulp of 1/64, and the card and
+    # the CPU sum the step's products in other orders (a few ulps at most,
+    # under one on average)
+    for dtype, atol, mean in ((torch.bfloat16, 6.25e-2, 1e-2), (torch.float32, 1e-4, 1e-5)):
+        cpu = build_model(cfg, dtype=dtype, seed=0, device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        logits = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            dev = model.device
+            cross = dec_mod.precompute_cross_kv_int8(model.decoder,
+                                                     feats.to(dev, dtype))
+            cache = dec_mod.init_kv_cache(cfg, 3, dtype, dev, ctx=16)
+            dec_mod.decode_step(model.decoder, prompt.to(dev), cross, cache, 0,
+                                valid_from=1)
+            before = (ss.launches, si.launches)
+            step, _ = dec_mod.decode_step(
+                model.decoder, verify[:, :1].to(dev), cross, cache, pos.to(dev),
+                valid_from=1, self_kernel=dtype == torch.bfloat16)
+            launched = (ss.launches - before[0], si.launches - before[1])
+            if dev.type == "cuda":
+                want = (cfg.n_text_layer if dtype == torch.bfloat16 else 0,
+                        cfg.n_text_layer)
+                assert launched == want
+            before = (ss.launches, si.launches)
+            out, _ = dec_mod.decode_step(model.decoder, verify.to(dev), cross,
+                                         cache, pos.to(dev) + 1, valid_from=1)
+            assert (ss.launches, si.launches) == before  # the verify step: none
+            logits[name] = (step.float().cpu(), out.float().cpu(),
+                            [c.float().cpu() for c in cache])
+        for what, ours, ref in zip(("draft step", "verify step"), logits["cuda"][:2],
+                                   logits["cpu"][:2]):
+            err = (ours - ref).abs()
+            print(f"{dtype} {what}: max {err.max().item():.4g}, "
+                  f"mean {err.mean().item():.4g}")
+            assert err.max().item() <= atol and err.mean().item() <= mean
+        for ours, ref in zip(logits["cuda"][2], logits["cpu"][2]):
+            assert (ours - ref).abs().max().item() <= atol
+    # fp32 speculative greedy: the card's tokens and counts are the CPU's
+    cpu = build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    draft = build_model(cfg, dtype=torch.float32, seed=1, device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        t, d = (cpu, draft) if dev == "cpu" else (copy.deepcopy(cpu).to(dev),
+                                                  copy.deepcopy(draft).to(dev))
+        x = feats.to(dev)
+        toks = torch.full((3, 4), cfg.eot_token)
+        toks[:, 0] = cfg.sot_token
+        mask = torch.zeros(cfg.n_vocab, dtype=torch.bool, device=dev)
+        out = speculative.spec_decode_core(
+            t.decoder, d.decoder, x, x, toks.to(dev), mask, mask, 50, 0, 0,
+            sample_len=40, use_timestamps=True, prompt_len=4, spec_k=3,
+            kv_dtype="int8")
+        outs[dev] = [o.cpu() for o in out]
+    for i in (0, 2, 4, 5):
+        assert torch.equal(outs["cuda"][i], outs["cpu"][i])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("which", ["quantize_kv_column", "quantize_linear", "ieee_div"])
 def test_quantizers_are_bit_equal_on_card_and_cpu(which):
     """int8 codes and fp32 scales are the same bits on the card as on the

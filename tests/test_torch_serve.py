@@ -205,15 +205,15 @@ def test_speculative_seek_repair_matches_jax(monkeypatch):
 
 
 def test_serve_options_match_jax_but_speculative_fields():
-    """The port's ServeOptions are JAX's, with JAX's defaults, less the
-    three fields only a draft model reads; word timestamps are taken, and
-    refused without timestamps as JAX refuses them, and continuous with
-    beam_size is taken."""
+    """The port's ServeOptions are JAX's, with JAX's defaults, the three
+    fields a draft model reads included (speculative decoding is ported);
+    word timestamps are taken, and refused without timestamps as JAX
+    refuses them, and continuous with beam_size is taken."""
     ours = {f.name: f.default for f in dataclasses.fields(ServeOptions)}
     ref = {f.name: f.default for f in dataclasses.fields(jsv.ServeOptions)}
-    assert set(ref) - set(ours) == {"spec_k", "spec_fallback",
-                                    "spec_fallback_threshold"}
-    assert ours == {k: ref[k] for k in ours}
+    assert set(ref) == set(ours)
+    assert {"spec_k", "spec_fallback", "spec_fallback_threshold"} <= set(ours)
+    assert ours == ref
     assert ServeOptions(temperature=0.4).temperature == (0.4,)
     assert ServeOptions(word_timestamps=True).word_timestamps
     for cls in (ServeOptions, jsv.ServeOptions):

@@ -191,42 +191,73 @@ def test_word_timestamps_on_both_routes_match_jax(models, oa_server):
     assert status == 200 and "segments" in out and "words" not in out["segments"][0]
 
 
+class _Started(Exception):
+    pass
+
+
+def _main_server(monkeypatch, model, argv):
+    """Run main up to the server's start; returns (server, load_model
+    calls). Each load_model call gets its own shallow copy of the model, so
+    a draft set on it stays in this test."""
+    import copy
+
+    made, loads = {}, []
+
+    def fake_load(name, **kw):
+        loads.append((name, kw))
+        return copy.copy(model)
+
+    def fake_start(self):
+        made["server"] = self
+        raise _Started
+
+    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model", fake_load)
+    monkeypatch.setattr(WhisperHTTPServer, "start", fake_start)
+    with pytest.raises(_Started):
+        tsh.main(["--port", "0"] + argv)
+    return made["server"], loads
+
+
 @pytest.mark.parametrize("argv,what", [
     (["--draft-model", "tiny"], "speculative.py"),
     (["--tensor-parallel", "2"], "parallel/"),
 ])
-def test_main_refuses_unported(argv, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        tsh.main(argv)
+def test_main_refuses_unported(argv, what, model, monkeypatch):
+    """--tensor-parallel > 1 raises naming ROADMAP.md. --draft-model is
+    ported: the draft loads through load_model with the server's
+    quantisation, is checked against the target, and becomes model.draft."""
+    if what != "speculative.py":
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            tsh.main(argv)
+        return
+    srv, loads = _main_server(monkeypatch, model,
+                              argv + ["--draft-checkpoint", "d.safetensors"])
+    assert [name for name, _ in loads] == ["tiny", "tiny"]
+    assert loads[1][1]["checkpoint"] == "d.safetensors"
+    assert srv.model.draft is not None and srv.model.draft is not srv.model
+    assert model.draft is None
 
 
-@pytest.mark.parametrize("argv", [["--draft-checkpoint", "x"], ["--spec-k", "4"]])
-def test_main_does_not_accept_speculative_flags(argv):
-    with pytest.raises(SystemExit):
-        tsh.main(argv)
+@pytest.mark.parametrize("argv", [["--draft-checkpoint", "x"], ["--spec-k", "6"]])
+def test_main_does_not_accept_speculative_flags(argv, model, monkeypatch):
+    """The draft's flags are JAX's and are taken: --spec-k reaches the
+    serving options; without --draft-model no draft is loaded."""
+    srv, loads = _main_server(monkeypatch, model, argv)
+    assert len(loads) == 1 and srv.model.draft is None
+    assert srv.default_options["spec_k"] == (6 if "--spec-k" in argv else 4)
 
 
 def test_main_serves_without_spec_k(model, monkeypatch):
-    """main's default_options are ServeOptions fields only (JAX's spec_k
-    would fail every batch here); the model comes from load_model."""
-    made = {}
-
-    class Started(Exception):
-        pass
-
-    def fake_start(self):
-        made["opts"] = self.default_options
-        raise Started
-
-    monkeypatch.setattr("openai_whisper_coreml_tpu_torch.load_model",
-                        lambda *a, **k: model)
-    monkeypatch.setattr(WhisperHTTPServer, "start", fake_start)
-    with pytest.raises(Started):
-        tsh.main(["--port", "0", "--kv-dtype", "int8", "--scheduler", "continuous"])
-    assert made["opts"] == {"kv_dtype": "int8", "scheduler": "continuous"}
+    """main's default_options are ServeOptions fields, spec_k among them
+    as in JAX; the model comes from load_model."""
+    srv, _ = _main_server(monkeypatch, model,
+                          ["--kv-dtype", "int8", "--scheduler", "continuous",
+                           "--spec-k", "3"])
+    assert srv.default_options == {"kv_dtype": "int8", "scheduler": "continuous",
+                                   "spec_k": 3}
     from openai_whisper_coreml_tpu_torch import ServeOptions
 
-    ServeOptions(**made["opts"])
+    assert ServeOptions(**srv.default_options).spec_k == 3
 
 
 # -- the JAX server's tests, on the port ----------------------------------------

@@ -101,10 +101,20 @@ def test_multistream_events_match_jax(models):
 
 
 def test_draft_model_raises_naming_speculative(model):
-    with pytest.raises(NotImplementedError, match="speculative.py"):
-        tst.StreamingTranscriber(model, draft_model=object())
-    with pytest.raises(NotImplementedError, match="speculative.py"):
-        tst.MultiStreamTranscriber(model, n_streams=1, draft_model=object())
+    """A draft no longer raises: both stream classes take one, each with its
+    acceptance governor, and a self-draft streams the plain events."""
+    from openai_whisper_coreml_tpu_torch import speculative
+
+    audio = _tone(4, 3)
+    kw = dict(language="en", agreement=1, decode_interval=2.0, sample_len=8)
+    plain = _stream(tst.StreamingTranscriber(model, **kw), audio)
+    st = tst.StreamingTranscriber(model, draft_model=model, spec_k=3, **kw)
+    before = speculative.TOTALS["iters"]
+    assert _stream(st, audio) == plain
+    assert speculative.TOTALS["iters"] > before
+    assert st._spec_gov is not None and not st._spec_gov.disabled
+    mst = tst.MultiStreamTranscriber(model, n_streams=1, draft_model=model)
+    assert mst._spec_gov is not None and mst.draft_model is model
 
 
 # -- the JAX streaming tests' unit checks, on the port -----------------------
