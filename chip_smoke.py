@@ -120,7 +120,25 @@ Phases (each raises, so the script exits non-zero, on failure):
      cosine schedule and held-out evaluation; LoRA rank 8 with a saved
      train state and a --resume; then the merged checkpoint decodes one
      window. Per-step wall seconds, peak device memory and one step's
-     device-busy share (torch.profiler).
+     device-busy share (torch.profiler);
+  9. evaluation: `eval.harness.evaluate` on large-v3 (int8 weights and
+     cross-KV, random) over six speech-like utterances in a flat corpus,
+     32-token windows: JAX's report keys, a finite WER, the hypotheses and
+     tokens of a plain transcribe_batch of the same audio; the audio
+     loader (native or serial) printed;
+ 10. the trained tiny pair (tools/torch_spec_acceptance_trained.py's
+     functions: tiny at full width, fp32, TF32 off; the target, then a
+     half-depth draft on a copy of its encoder, decoder only; the tool's
+     step caps and target loss): `evaluate` over eight held-out tone
+     variants with the target and with the draft at K = 4 (governor off),
+     WER <= 0.30 for both, speculative tokens equal to plain, acceptance
+     >= 0.5; tokens per iteration beside the pair's break-even (ms per
+     iteration at K = 4 over plain ms per token, B = 8, measured there);
+ 11. the CLI with --profile-dir on an 8 s tone with the trained target
+     (bf16, int8 weights and cross-KV): one trace file, whose CUDA kernel
+     events name K4, K1 and K3/K6 as often as the path launched them;
+     how many of device_trace's opening marker kernels the profiler lost
+     at the trace's start, beside the number of traces the process took.
 Each main path starts with every kernel's launch count at 0 and checks it
 against what the path ran: one K4 launch per log-mel call, one K1 launch
 per encoder layer per encode, one K3 launch per decoder layer of each
@@ -218,15 +236,20 @@ def alternate(plain, kernel, iters=20) -> tuple[float, float, dict]:
             min(times["plain"], times["plain2"]), times)
 
 
-def sqa_time():
-    """tools/torch_sqa_time.py: the one owner of the profiler loop, the
-    decode-step profile's inputs and the host timing per call."""
+def tool(name: str):
+    """A module of tools/ (imported from this checkout's tools/)."""
     tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
     if tools not in sys.path:
         sys.path.append(tools)
-    import torch_sqa_time
+    import importlib
 
-    return torch_sqa_time
+    return importlib.import_module(name)
+
+
+def sqa_time():
+    """tools/torch_sqa_time.py: the one owner of the profiler loop, the
+    decode-step profile's inputs and the host timing per call."""
+    return tool("torch_sqa_time")
 
 
 def device_ms(fn, kernel: str | None, iters=20) -> float:
@@ -1694,6 +1717,256 @@ def main_path(name, kernels, idle=SERVING_IDLE):
         TOTALS[k] = TOTALS.get(k, 0) + n
 
 
+# the report keys of JAX's eval/harness.evaluate (WER languages)
+EVAL_KEYS = {"n_utterances", "audio_seconds", "wall_seconds", "rtfx", "wer",
+             "substitutions", "deletions", "insertions", "hits", "ref_words",
+             "examples"}
+
+
+@contextlib.contextmanager
+def capture_batches():
+    """Record what each `serve.transcribe_batch` call returns (`evaluate`
+    reports three examples; its hypotheses and tokens are all here)."""
+    from openai_whisper_coreml_tpu_torch import serve
+
+    runs = []
+    original = serve.transcribe_batch
+
+    def recording(*args, **kwargs):
+        runs.append(original(*args, **kwargs))
+        return runs[-1]
+
+    serve.transcribe_batch = recording
+    try:
+        yield runs
+    finally:
+        serve.transcribe_batch = original
+
+
+def tokens_of(results) -> list:
+    return [[s["tokens"] for s in r["segments"]] for r in results]
+
+
+def check_report(report, n: int, name: str) -> None:
+    if (set(report) != EVAL_KEYS or report["n_utterances"] != n
+            or not report["rtfx"] > 0 or not np.isfinite(report["wer"])
+            or len(report["examples"]) != min(3, n)):
+        raise AssertionError(f"{name}: report {report}")
+
+
+def eval_slice(wt, kernels) -> dict:
+    """`eval.harness.evaluate` on large-v3 (int8 weights and cross-KV, bf16
+    activations, random weights from seed 0) over a flat corpus of six
+    speech-like utterances (4-9 s, one window each), batch 8, 32-token
+    windows: the report has JAX's keys and a finite WER; the timed call's
+    hypotheses and tokens equal a plain `transcribe_batch` of the same audio
+    with the same options; K4, K1, K3 and K6 launch as the path implies."""
+    from openai_whisper_coreml_tpu_torch.eval import harness
+    from openai_whisper_coreml_tpu_torch.utils import audio_io
+
+    model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
+                          device="cuda")
+    opts = dict(kv_dtype="int8", sample_len=32, temperature=(0.0,),
+                no_speech_threshold=None)
+    loader = "native" if audio_io.native_batch_loader() else "serial"
+    with tempfile.TemporaryDirectory() as tmp:
+        write_corpus(tmp, 6)
+        with capture_batches() as runs, main_path("evaluate", kernels) as calls:
+            report = harness.evaluate(model, tmp, batch_size=8, language="en", **opts)
+        audios = [audio_io.load_audio(u.audio_path) for u in harness.discover(tmp)]
+    check_report(report, 6, "evaluate")
+    if len(runs) != 2 or calls["encode"] != 2:
+        raise AssertionError(f"evaluate: {len(runs)} batches, {calls['encode']} encodes")
+    plain = wt.transcribe_batch(model, audios, wt.ServeOptions(
+        batch_size=8, language="en", **opts))
+    if ([r["text"] for r in runs[1]] != [r["text"] for r in plain]
+            or tokens_of(runs[1]) != tokens_of(plain)):
+        raise AssertionError("evaluate's hypotheses differ from transcribe_batch's")
+    log(f"evaluate large-v3 int8 on {card()}: audio loader {loader}; "
+        + json.dumps({k: v for k, v in report.items() if k != "examples"}))
+    del model
+    torch.cuda.empty_cache()
+    return report
+
+
+def write_tone_corpus(root: str, phrases, tone_audio, n: int) -> None:
+    """The trained pair's held-out variants (noise seeds 777 + i, class
+    i % len(phrases)) as a flat corpus."""
+    from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
+
+    for i in range(n):
+        c = i % len(phrases)
+        save_wav(os.path.join(root, f"t{i}.wav"), tone_audio(c, seed=777 + i))
+        with open(os.path.join(root, f"t{i}.txt"), "w", encoding="utf-8") as f:
+            f.write(phrases[c])
+
+
+# fp32 decodes launch neither K3 (bf16 caches only) nor K6 (int8 only)
+FP32_IDLE = SERVING_IDLE + ("sqa_self", "sqa_int8")
+# the trained pair's training runs without flash: K4 only
+TRAIN_IDLE = FP32_IDLE + ("flash_attention",)
+WER_GATE, ACCEPTANCE_GATE = 0.30, 0.5
+
+
+def trained_pair_slice(wt, kernels, ckpt: str) -> dict:
+    """The trained tiny pair (tools/torch_spec_acceptance_trained.py's
+    functions, its step caps and target loss) at tiny's full width, fp32 with
+    TF32 off: the target, then the half-depth draft on a copy of its
+    encoder, decoder only. Then `evaluate` over the eight held-out tone
+    variants with the target, and with the draft on model.draft at K = 4
+    (the governor off: every window drafts): WER <= 0.30 for both,
+    speculative tokens equal to plain, acceptance >= 0.5. The speculative
+    iteration's ms over the plain ms per token (the pair's break-even
+    tokens per iteration) at B = 8, beside the measured tokens per
+    iteration. The target is saved to `ckpt` for profile_slice."""
+    from openai_whisper_coreml_tpu_torch import speculative
+    from openai_whisper_coreml_tpu_torch.eval import harness
+    from openai_whisper_coreml_tpu_torch.utils.checkpoint import save_params
+
+    spec_tool = tool("torch_spec_acceptance_trained")
+    phrases = spec_tool.PHRASES_SHORT
+    t = time.perf_counter()
+    with main_path("trained pair training", kernels, idle=TRAIN_IDLE):
+        target, draft, rep_t, rep_d = spec_tool.train_pair(
+            "tiny", phrases, steps=400, draft_steps=400, batch=8,
+            target_loss=spec_tool.TARGET_LOSS, device="cuda", emit=log)
+    log(f"trained pair on {card()}: target {rep_t}, draft {rep_d}, "
+        f"{time.perf_counter() - t:.1f} s")
+    save_params(target, ckpt, model_name="tiny")
+    quiet = dict(batch_size=8, language="en", without_timestamps=True,
+                 temperature=(0.0,), logprob_threshold=None,
+                 compression_ratio_threshold=None, no_speech_threshold=None)
+    reports, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tone_corpus(tmp, phrases, spec_tool.tone_audio, 8)
+        with capture_batches() as runs, main_path("trained pair evaluate", kernels,
+                                                  idle=FP32_IDLE):
+            reports["plain"] = harness.evaluate(target, tmp, **quiet)
+        results["plain"] = runs[-1]
+        before = dict(speculative.TOTALS)
+        target.draft = draft
+        try:
+            with capture_batches() as runs, main_path(
+                    "trained pair evaluate, draft K=4", kernels, idle=FP32_IDLE):
+                reports["spec"] = harness.evaluate(
+                    target, tmp, spec_k=4, spec_fallback=False, **quiet)
+        finally:
+            target.draft = None
+        results["spec"] = runs[-1]
+    spent = {k: speculative.TOTALS[k] - before[k] for k in before}
+    acceptance = (spent["tokens"] - spent["iters"]) / max(spent["drafted"], 1)
+    per_iter = spent["tokens"] / max(spent["iters"], 1)
+    for name, report in reports.items():
+        check_report(report, 8, f"trained pair evaluate ({name})")
+    cores = spec_tool.Cores(target, draft, spec_tool.horizon(target.cfg, phrases))
+    (race,) = spec_tool.race(cores, spec_tool.held_out(phrases, 8)[0], [4], repeats=3)
+    out = {"target": rep_t, "draft": rep_d,
+           "wer_plain": reports["plain"]["wer"], "wer_spec": reports["spec"]["wer"],
+           "acceptance_rate": acceptance, "tokens_per_iter": per_iter, "spec": spent,
+           "rtfx_plain": reports["plain"]["rtfx"], "rtfx_spec": reports["spec"]["rtfx"],
+           "race_b8_k4": race, "card": card()}
+    log("trained pair: " + json.dumps(out))
+    if tokens_of(results["spec"]) != tokens_of(results["plain"]):
+        raise AssertionError("speculative tokens differ from plain on the trained pair")
+    if max(out["wer_plain"], out["wer_spec"]) > WER_GATE:
+        raise AssertionError(f"trained pair WER {out['wer_plain']}, {out['wer_spec']} "
+                             f"above {WER_GATE}: {reports}")
+    if not acceptance >= ACCEPTANCE_GATE or not race["token_exact_vs_plain"]:
+        raise AssertionError(f"trained pair acceptance {acceptance} below "
+                             f"{ACCEPTANCE_GATE}, or race tokens differ: {race}")
+    log(f"trained pair on {card()}: {per_iter:.3f} tokens per iteration at K = 4 "
+        f"(acceptance {acceptance:.4f}) against a break-even of "
+        f"{race['break_even_tokens_per_iter']:.3f} ({race['spec_ms_per_iter']:.3f} ms "
+        f"an iteration over {race['plain_ms_per_token']:.3f} ms a plain token, B = 8)")
+    del target, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+# a profile's CUDA kernels of each hand-written kernel, by name (csrc/)
+TRACE_KERNELS = {"log_mel": "log_mel_kernel", "flash_attention": "fa_fwd_bf16_kernel",
+                 "sqa": "sqa_kernel"}
+
+
+# torch.profiler traces this process has started: profile_slice logs the
+# records its trace lost at its start beside the count
+PROFILER_TRACES = [0]
+
+
+def count_profiler_traces() -> None:
+    """Count every torch.profiler trace this process starts."""
+    from torch.profiler import profile
+
+    start = profile.start
+
+    def counting_start(self):
+        PROFILER_TRACES[0] += 1
+        return start(self)
+
+    profile.start = counting_start
+
+
+def profile_slice(kernels, ckpt: str) -> dict:
+    """The CLI with `--profile-dir` on one 8 s held-out tone of the trained
+    tiny target (`ckpt`) with bf16 activations, int8 weights and cross-KV
+    and a bf16 cache: a trace file is written, and its CUDA kernel events
+    name K4 (log_mel_kernel), K1 (fa_fwd_bf16_kernel) and K3/K6
+    (sqa_kernel) as often as the path launched them."""
+    from openai_whisper_coreml_tpu_torch import cli
+    from openai_whisper_coreml_tpu_torch.utils import profiling
+    from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
+
+    spec_tool = tool("torch_spec_acceptance_trained")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "tone.wav")
+        save_wav(wav, spec_tool.tone_audio(2, seed=901))
+        trace_dir = os.path.join(tmp, "trace")
+        with main_path("cli --profile-dir", kernels) as calls:
+            rc = cli.main([wav, "--model", "tiny", "--checkpoint", ckpt,
+                           "--quantize", "int8", "--kv-dtype", "int8",
+                           "--dtype", "bfloat16", "--language", "en",
+                           "--without-timestamps",
+                           "--temperature-increment-on-fallback", "0",
+                           "--output-format", "txt", "--output-dir", tmp,
+                           "--profile-dir", trace_dir])
+        launches = read_counts(kernels)
+        if rc != 0:
+            raise AssertionError(f"cli --profile-dir returned {rc}")
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"--profile-dir wrote {os.listdir(trace_dir)}")
+        path = os.path.join(trace_dir, traces[0])
+        size = os.path.getsize(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        with open(os.path.join(tmp, "tone.txt"), encoding="utf-8") as f:
+            text = f.read().strip()
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(v in n for n in names) for k, v in TRACE_KERNELS.items()}
+    want = {"log_mel": launches["log_mel"], "flash_attention": launches["flash_attention"],
+            "sqa": launches["sqa_self"] + launches["sqa_int8"]}
+    # device_trace's opening region: a zero fill and the marker kernels,
+    # of which the profiler's loss at the trace's start takes the first
+    region = [e for e in events
+              if e.get("name") == "device_trace_markers" and e.get("ph") == "X"]
+    if not region:
+        raise AssertionError("the trace has no device_trace_markers region")
+    lo = min(e["ts"] for e in region)
+    hi = max(e["ts"] + e["dur"] for e in region)
+    launched = profiling._MARKER_KERNELS + 1
+    markers = sum(lo <= e["ts"] <= hi for e in events if e.get("cat") == "kernel")
+    log(f"cli --profile-dir on {card()}: {size} bytes, {len(events)} events, "
+        f"{len(names)} CUDA kernel events; hand-written kernels in the trace {found}, "
+        f"launched {want}; transcript {text[:200]!r}; trace {PROFILER_TRACES[0]} "
+        f"of this process: {markers} of its {launched} marker kernels in the trace, "
+        f"{launched - markers} lost at its start")
+    if found != want or not all(want.values()):
+        raise AssertionError(f"the trace names kernels {found}, launched {want}")
+    return {"trace_bytes": size, "kernel_events": len(names), "found": found,
+            "trace_of_process": PROFILER_TRACES[0], "markers_found": markers,
+            "markers_launched": launched}
+
+
 def serve_audio() -> np.ndarray:
     """Four 30 s windows of noise: the serve path's and spec_decode's."""
     return (np.random.default_rng(0).standard_normal((4, 480_000)) * 0.1
@@ -2754,6 +3027,7 @@ def main() -> int:
     from openai_whisper_coreml_tpu_torch.ops import sqa_v3 as sv
 
     t_start = time.perf_counter()
+    count_profiler_traces()
     log(card())
     log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2817,11 +3091,20 @@ def main() -> int:
     cli_slice(kernels)
     cli_stream_slice(kernels)
     finetune_slice(kernels)
+    evaluation = eval_slice(wt, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "tiny-trained.safetensors")
+        pair = trained_pair_slice(wt, kernels, ckpt)
+        profile = profile_slice(kernels, ckpt)
 
     for record in records:
         record["launches"] = TOTALS[record["name"]]
     records[0]["encoder_large_v3_b4"] = encoder
     log("spec_decode: " + json.dumps(spec))
+    log("evaluate: " + json.dumps({k: v for k, v in evaluation.items() if k != "examples"}))
+    log("trained pair: " + json.dumps({k: pair[k] for k in (
+        "acceptance_rate", "tokens_per_iter", "wer_plain", "wer_spec", "card")}))
+    log("profile: " + json.dumps(profile))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card())

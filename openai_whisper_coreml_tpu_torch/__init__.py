@@ -10,8 +10,10 @@ every entry point), speculative decoding with a draft model
 continuous schedulers, beam under both), streaming
 (`StreamingTranscriber`, `MultiStreamTranscriber`), the HTTP server
 (`python -m openai_whisper_coreml_tpu_torch.serve_http`), the CLI
-(`python -m openai_whisper_coreml_tpu_torch`) and checkpoint conversion
-(`python -m openai_whisper_coreml_tpu_torch.convert`). Imports torch,
+(`python -m openai_whisper_coreml_tpu_torch`, with `--profile-dir` for a
+torch.profiler trace), checkpoint conversion
+(`python -m openai_whisper_coreml_tpu_torch.convert`) and corpus
+evaluation (`eval.harness.evaluate`: WER and RTFx). Imports torch,
 never JAX; the JAX package is the reference it is tested against.
 """
 

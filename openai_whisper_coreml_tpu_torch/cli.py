@@ -13,8 +13,10 @@ subtitle options (`--max-line-width`, `--max-line-count`,
 `--hallucination-silence-threshold` act on. `--draft-model` (with
 `--draft-checkpoint` and `--spec-k`) decodes speculatively with a draft
 model sharing the tokenizer (`speculative.py`), in files and with
-`--stream`. Flags whose module is not ported yet raise with a message
-naming ROADMAP.md: `--profile-dir` and `--tensor-parallel` above 1. Left
+`--stream`. `--profile-dir` writes a torch.profiler trace of each file's
+transcription (CPU ops and CUDA kernels; `utils/profiling.device_trace`).
+`--tensor-parallel` above 1 raises with a message naming ROADMAP.md: its
+module is not ported yet. Left
 out is the JAX CLI's `--batch`, which it never reads. The models are built
 on the card; without one, loading them raises.
 """
@@ -70,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="simulate real-time streaming over the file, "
                         "printing confirmed text incrementally")
     p.add_argument("--profile-dir", default=None,
-                   help="device trace directory (not ported yet)")
+                   help="write a torch.profiler device trace here")
     p.add_argument("--no-condition-on-previous-text", action="store_true")
     p.add_argument("--initial-prompt", default=None)
     p.add_argument("--carry-initial-prompt", action="store_true",
@@ -127,10 +129,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir (device traces) is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1)")
     if args.tensor_parallel > 1:
         raise NotImplementedError(
             "--tensor-parallel > 1 (parallel/) is not ported to PyTorch yet "
@@ -170,6 +168,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         temperature = [args.temperature]
     else:
         temperature = list(np.arange(args.temperature, 1.0 + 1e-6, inc))
+
+    from .utils.profiling import device_trace
 
     status = 0
     for path in args.audio:
@@ -212,36 +212,37 @@ def main(argv: Optional[List[str]] = None) -> int:
                   + "  ".join(f"{c}={p:.3f}" for c, p in top))
             continue
 
-        result = model.transcribe(
-            audio,
-            task=args.task,
-            language=args.language,
-            temperature=temperature,
-            compression_ratio_threshold=args.compression_ratio_threshold,
-            logprob_threshold=args.logprob_threshold,
-            no_speech_threshold=args.no_speech_threshold,
-            condition_on_previous_text=not args.no_condition_on_previous_text,
-            initial_prompt=args.initial_prompt,
-            carry_initial_prompt=args.carry_initial_prompt,
-            without_timestamps=args.without_timestamps,
-            word_timestamps=args.word_timestamps,
-            prepend_punctuations=args.prepend_punctuations,
-            append_punctuations=args.append_punctuations,
-            clip_timestamps=args.clip_timestamps,
-            vad_filter=args.vad_filter,
-            hallucination_silence_threshold=(
-                args.hallucination_silence_threshold),
-            verbose=args.verbose,
-            best_of=args.best_of,
-            beam_size=args.beam_size,
-            patience=args.patience,
-            length_penalty=args.length_penalty,
-            suppress_tokens=args.suppress_tokens,
-            kv_dtype=args.kv_dtype,
-            cache_dtype=args.cache_dtype,
-            draft_model=draft,
-            spec_k=args.spec_k,
-        )
+        with device_trace(args.profile_dir):
+            result = model.transcribe(
+                audio,
+                task=args.task,
+                language=args.language,
+                temperature=temperature,
+                compression_ratio_threshold=args.compression_ratio_threshold,
+                logprob_threshold=args.logprob_threshold,
+                no_speech_threshold=args.no_speech_threshold,
+                condition_on_previous_text=not args.no_condition_on_previous_text,
+                initial_prompt=args.initial_prompt,
+                carry_initial_prompt=args.carry_initial_prompt,
+                without_timestamps=args.without_timestamps,
+                word_timestamps=args.word_timestamps,
+                prepend_punctuations=args.prepend_punctuations,
+                append_punctuations=args.append_punctuations,
+                clip_timestamps=args.clip_timestamps,
+                vad_filter=args.vad_filter,
+                hallucination_silence_threshold=(
+                    args.hallucination_silence_threshold),
+                verbose=args.verbose,
+                best_of=args.best_of,
+                beam_size=args.beam_size,
+                patience=args.patience,
+                length_penalty=args.length_penalty,
+                suppress_tokens=args.suppress_tokens,
+                kv_dtype=args.kv_dtype,
+                cache_dtype=args.cache_dtype,
+                draft_model=draft,
+                spec_k=args.spec_k,
+            )
         elapsed = time.time() - t0
         out = write_result(result, path, args.output_dir, args.output_format,
                            highlight_words=args.highlight_words,

@@ -1,4 +1,5 @@
-"""Dataset helpers (port of `eval/`): corpus discovery for fine-tuning.
+"""Evaluation (port of `eval/`): corpus discovery and `evaluate` (WER and
+RTFx, `harness.py`), the WER/CER metrics (`wer.py`) and openai's text
+normalisers (`normalizers.py`)."""
 
-`evaluate`, WER and the text normalizers are not ported yet (ROADMAP.md).
-"""
+from .wer import WERResult, compute_wer, normalize_text  # noqa: F401

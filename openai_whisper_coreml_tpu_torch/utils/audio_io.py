@@ -55,6 +55,16 @@ def _find_native_lib() -> Optional[ctypes.CDLL]:
                     ctypes.c_int,
                     ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
                 ]
+                if hasattr(lib, "wa_load_batch"):
+                    lib.wa_load_batch.restype = ctypes.c_longlong
+                    lib.wa_load_batch.argtypes = [
+                        ctypes.POINTER(ctypes.c_char_p),
+                        ctypes.c_longlong,
+                        ctypes.c_int,
+                        ctypes.c_int,
+                        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+                        ctypes.POINTER(ctypes.c_longlong),
+                    ]
                 _native_lib = lib
                 return lib
             except OSError:
@@ -223,6 +233,48 @@ def load_audio(path: str, sample_rate: int = 16_000) -> np.ndarray:
         )
     data, rate = _load_wav_python(path)
     return resample(data, rate, sample_rate)
+
+
+def native_batch_loader() -> bool:
+    """Whether `load_audio_batch` can take the native threaded loader."""
+    lib = _find_native_lib()
+    return lib is not None and hasattr(lib, "wa_load_batch")
+
+
+def load_audio_batch(paths, sample_rate: int = 16_000,
+                     n_threads: int = 0) -> list:
+    """Load many files in parallel through the native threaded loader.
+
+    The eval harness walks thousands of utterances; serial loads leave the
+    host CPU-bound while the card idles. Falls back to serial `load_audio`
+    per file when the native library is unavailable (or for paths that are
+    not WAV/FLAC). n_threads=0 uses the hardware concurrency. A file that
+    fails in the batch is retried through `load_audio` (WAV falls back to
+    the Python decoder; a FLAC the native decoder rejects raises, since
+    there is no other decoder)."""
+    paths = list(paths)
+    if (not native_batch_loader()
+            or not all(p.lower().endswith(_NATIVE_SUFFIXES) for p in paths)):
+        return [load_audio(p, sample_rate) for p in paths]
+
+    lib = _find_native_lib()
+    n = len(paths)
+    if n == 0:
+        return []
+    c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    outs = (ctypes.POINTER(ctypes.c_float) * n)()
+    lens = (ctypes.c_longlong * n)()
+    lib.wa_load_batch(c_paths, n, int(sample_rate), int(n_threads), outs,
+                      lens)
+    result = []
+    for i in range(n):
+        if lens[i] >= 0:
+            arr = np.ctypeslib.as_array(outs[i], shape=(lens[i],)).copy()
+            lib.wa_free(outs[i])
+            result.append(arr)
+        else:
+            result.append(load_audio(paths[i], sample_rate))
+    return result
 
 
 def save_wav(path: str, audio: np.ndarray, sample_rate: int = 16_000) -> None:

@@ -138,12 +138,15 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
     (["--profile-dir", "trace"], "profile"),
     (["--tensor-parallel", "2"], "parallel"),
 ])
-def test_cli_unported_flags_raise(flags, what, models, wav, tmp_path, monkeypatch):
-    """--profile-dir and --tensor-parallel > 1 raise naming ROADMAP.md.
-    --draft-model is ported: the draft loads through load_model with the
-    target's dtype and quantisation and --draft-checkpoint, and the file
-    decodes speculatively to the plain run's transcript."""
-    if what != "speculative.py":
+def test_cli_draft_profile_and_tensor_parallel_flags(flags, what, models, wav,
+                                                     tmp_path, monkeypatch):
+    """--tensor-parallel > 1 raises naming ROADMAP.md. --profile-dir writes a
+    torch.profiler trace of the file's transcription (on the CPU here) and
+    leaves the transcript as it is. --draft-model loads the draft through
+    load_model with the target's dtype and quantisation and
+    --draft-checkpoint, and the file decodes speculatively to the plain
+    run's transcript."""
+    if what == "parallel":
         with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
             tcli.main(["a.wav"] + flags)
         return
@@ -160,13 +163,23 @@ def test_cli_unported_flags_raise(flags, what, models, wav, tmp_path, monkeypatc
     args = [wav, "--language", "en", "--temperature-increment-on-fallback", "0",
             "--output-format", "json", "--spec-k", "3"]
     assert tcli.main(args + ["-o", str(tmp_path / "plain")]) == 0
+    plain = json.loads((tmp_path / "plain" / "clip.json").read_text())
+    if what == "profile":
+        trace_dir = tmp_path / flags[1]
+        assert tcli.main(args + ["--profile-dir", str(trace_dir),
+                                 "-o", str(tmp_path / "traced")]) == 0
+        (trace,) = list(trace_dir.glob("*.pt.trace.json"))
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("name") == "aten::mm" for e in events)
+        traced = json.loads((tmp_path / "traced" / "clip.json").read_text())
+        assert traced["segments"] == plain["segments"]
+        return
     before = speculative.TOTALS["iters"]
     assert tcli.main(args + flags + ["--draft-checkpoint", "d.safetensors",
                                      "-o", str(tmp_path / "spec")]) == 0
     assert speculative.TOTALS["iters"] > before
     assert [name for name, _ in loads] == ["tiny", "tiny", "tiny"]
     assert loads[2][1]["checkpoint"] == "d.safetensors"
-    plain = json.loads((tmp_path / "plain" / "clip.json").read_text())
     spec = json.loads((tmp_path / "spec" / "clip.json").read_text())
     assert spec["text"] == plain["text"]
     assert [s["tokens"] for s in spec["segments"]] == [
@@ -312,7 +325,7 @@ def test_cli_flags_match_jax():
 
 @pytest.mark.parametrize("flags", [["--spec-k", "3"],
                                    ["--draft-checkpoint", "d.safetensors"]])
-def test_cli_rejects_speculative_only_flags(flags, capsys):
+def test_cli_takes_speculative_flags_as_jax(flags, capsys):
     """The flags a draft model reads are taken, with JAX's values, since
     speculative decoding is ported."""
     ours = vars(tcli.build_parser().parse_args(["a.wav"] + flags))

@@ -155,7 +155,7 @@ def test_option_validation_matches_jax():
             tdecoding.DecodingOptions(**kw)
 
 
-def test_decode_with_draft_raises(models):
+def test_decode_with_self_draft_equals_plain_and_jax(models):
     """A draft no longer raises: speculative decoding is ported. With the
     model as its own draft, decode gives the plain loop's tokens and JAX's
     speculative decode's, and publishes a speculative wall and its stats."""

@@ -887,3 +887,71 @@ def test_quantizers_are_bit_equal_on_card_and_cpu(which):
     card = fn(torch.from_numpy(x).cuda())
     for a, b in zip(cpu, card, strict=True):
         assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_evaluate_on_card_equals_cpu(tmp_path):
+    """`evaluate` of a tiny fp32 model (head dim 64) over a three-utterance
+    flat corpus on the card: the hypotheses and error counts the CPU's,
+    with the frontend (K4) and the encoder (K1) launched on the way."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from openai_whisper_coreml_tpu_torch.eval.harness import evaluate
+    from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
+
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        t = np.arange(int((2 + i) * 16000)) / 16000
+        x = (0.2 * np.sin(2 * np.pi * (150 + 40 * i) * t)
+             + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+        save_wav(str(tmp_path / f"utt{i}.wav"), x, 16000)
+        (tmp_path / f"utt{i}.txt").write_text(f"reference text {i}")
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    cpu = build_model(cfg, dtype=torch.float32, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    kw = dict(batch_size=2, language="en", no_speech_threshold=None,
+              logprob_threshold=None, compression_ratio_threshold=None,
+              temperature=(0.0,), sample_len=16)
+    reports = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        before = (fa.launches, mk.launches)
+        report = evaluate(model, str(tmp_path), **kw)
+        if name == "card":
+            assert fa.launches > before[0] and mk.launches > before[1]
+        assert report.pop("wall_seconds") >= 0 and report.pop("rtfx") > 0
+        reports[name] = report
+    assert reports["card"] == reports["cpu"]
+    assert [e["id"] for e in reports["card"]["examples"]] == [
+        "utt0.wav", "utt1.wav", "utt2.wav"]
+
+
+@pytest.mark.cuda
+def test_device_trace_records_the_flash_kernel_on_card(tmp_path):
+    """A device trace around a bf16 encode on the card holds the flash
+    kernel's launches as CUDA kernel events, and the annotated region."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import glob
+    import json
+
+    from openai_whisper_coreml_tpu_torch.utils.profiling import annotate, device_trace
+
+    model = build_model(tiny_test_config(n_state=128, n_head=2, n_layer=2),
+                        dtype=torch.bfloat16, seed=0, device="cuda")
+    audio = (np.random.default_rng(1).standard_normal((1, 480_000)) * 0.1
+             ).astype(np.float32)
+    before = fa.launches
+    with device_trace(str(tmp_path)):
+        with annotate("encode_window"):
+            model.encode(model.log_mel(audio))
+    assert fa.launches - before == 2
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    # csrc/flash_attention.cu's fa_fwd_bf16_kernel, csrc/mel.cu's log_mel_kernel
+    assert sum("fa_fwd_bf16_kernel" in k for k in kernels) == 2, sorted(set(kernels))
+    assert any("log_mel_kernel" in k for k in kernels), sorted(set(kernels))
+    assert any(e.get("name") == "encode_window" for e in events)

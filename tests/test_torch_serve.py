@@ -204,7 +204,7 @@ def test_speculative_seek_repair_matches_jax(monkeypatch):
     assert calls["port"] == calls["jax"]
 
 
-def test_serve_options_match_jax_but_speculative_fields():
+def test_serve_options_match_jax():
     """The port's ServeOptions are JAX's, with JAX's defaults, the three
     fields a draft model reads included (speculative decoding is ported);
     word timestamps are taken, and refused without timestamps as JAX

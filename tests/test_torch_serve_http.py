@@ -222,7 +222,7 @@ def _main_server(monkeypatch, model, argv):
     (["--draft-model", "tiny"], "speculative.py"),
     (["--tensor-parallel", "2"], "parallel/"),
 ])
-def test_main_refuses_unported(argv, what, model, monkeypatch):
+def test_main_loads_draft_and_refuses_tensor_parallel(argv, what, model, monkeypatch):
     """--tensor-parallel > 1 raises naming ROADMAP.md. --draft-model is
     ported: the draft loads through load_model with the server's
     quantisation, is checked against the target, and becomes model.draft."""
@@ -239,7 +239,7 @@ def test_main_refuses_unported(argv, what, model, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--draft-checkpoint", "x"], ["--spec-k", "6"]])
-def test_main_does_not_accept_speculative_flags(argv, model, monkeypatch):
+def test_main_takes_speculative_flags(argv, model, monkeypatch):
     """The draft's flags are JAX's and are taken: --spec-k reaches the
     serving options; without --draft-model no draft is loaded."""
     srv, loads = _main_server(monkeypatch, model, argv)
@@ -247,7 +247,7 @@ def test_main_does_not_accept_speculative_flags(argv, model, monkeypatch):
     assert srv.default_options["spec_k"] == (6 if "--spec-k" in argv else 4)
 
 
-def test_main_serves_without_spec_k(model, monkeypatch):
+def test_main_default_options_carry_spec_k(model, monkeypatch):
     """main's default_options are ServeOptions fields, spec_k among them
     as in JAX; the model comes from load_model."""
     srv, _ = _main_server(monkeypatch, model,

@@ -100,7 +100,7 @@ def test_multistream_events_match_jax(models):
     assert all(evs[-1][2] is True for evs in ours.values())
 
 
-def test_draft_model_raises_naming_speculative(model):
+def test_stream_classes_take_a_draft_model(model):
     """A draft no longer raises: both stream classes take one, each with its
     acceptance governor, and a self-draft streams the plain events."""
     from openai_whisper_coreml_tpu_torch import speculative

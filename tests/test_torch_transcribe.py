@@ -333,7 +333,7 @@ def test_sampled_ladder_end_to_end(models, speechy_audio):
         assert all(0 <= t < tm.cfg.n_vocab for t in s["tokens"])
 
 
-def test_unported_options_and_bad_audio_raise(models, speechy_audio):
+def test_word_timestamps_and_draft_match_and_bad_audio_raises(models, speechy_audio):
     """Word timestamps are ported: 8 s with them give JAX's segments and
     words. A draft model (speculative decoding, ported) gives the plain
     segments; audio that is not mono raises."""
