@@ -107,7 +107,30 @@ Phases (each raises, so the script exits non-zero, on failure):
      --draft-model large-v3-turbo --spec-k 4) and the
      CLI's --stream on a 5 s WAV (streams decode with a bf16
      cross-KV and cache, as in JAX: K4, K1 and K3 only). The batch-1 decode is shortened
-     from 224 to 64 tokens;
+     from 224 to 64 tokens. Then the DP x TP mesh (`parallel_slice`):
+     ranks spawned with torchrun's environment share the card over gloo
+     (`initialize_distributed` picks it: two ranks on one card); fp32,
+     TF32 off, the large-v3-turbo config at its published widths (seed 0,
+     int8 cross-KV) on meshes (1, 2), (2, 1) and (2, 2) against the
+     unsharded model in this process: logits within 1e-3, greedy tokens
+     of four windows at 32 tokens equal (a differing row must be a
+     near-tie within 1e-4), K1 32 launches per encode on every rank; on
+     (1, 2) large-v3 bf16 with int8 weights and cross-KV and a bf16
+     cache, without timestamps: decode of four windows at 32 tokens and
+     transcribe_batch of six requests under the continuous scheduler
+     (8-token windows), each rank's K4, K1, K3 and K6 counted by
+     `main_path`, tokens in the vocabulary, each row that parts from the
+     unsharded model a bf16 tie (`bf16_ties`), each rank's parameter bytes at
+     most 57% of the unsharded model's; training of `tiny` at its widths
+     (fp32) on (1, 2) and (2, 1), two updates with accumulation and an
+     acting clip and one LoRA step on an int8 base, losses and every
+     gathered leaf within rtol 1e-5 of the one-process step; the CLI on a
+     35 s WAV at large-v3-turbo int8 (large-v3's widths, a 4-layer decoder:
+     the depth cut for time) under `python -m torch.distributed.run
+     --standalone --nproc-per-node 2 ... --tensor-parallel 2`, its files
+     written once.
+     The walls are no multi-card figure: gloo stages every collective
+     through the host, and the ranks take turns on one card;
   7. the decode step's profile: 5 large-v3 B=4 steps at a 224-token horizon
      with the decode kernels through their per-step entries (K3 + K6), with
      the per-call wrappers instead, with self_kernel=False (K6 only) and
@@ -3014,6 +3037,480 @@ def profile_step(model, ss, si):
                                                  "cprofile": cprof}))
 
 
+# -- the DP x TP mesh (parallel/) ------------------------------------------------
+# The ranks share the one card over gloo: NCCL refuses two ranks on one card,
+# and gloo carries CUDA tensors for all_reduce (the only collective the
+# sharded paths issue on the card), staging each through the host. The walls
+# below prove the sharded path end to end; they are no multi-card figure.
+
+PARALLEL_TIMEOUT_S = 420
+PARALLEL_IDLE = ("flash_attention_causal", "flash_attention_online", "sqa_v3")
+# the bf16 serving checks, sharded and unsharded alike. Without timestamps a
+# greedy token is the argmax of the raw logits over the allowed tokens, so
+# where the two models part, the unsharded model's margin between the two
+# tokens is a difference of two logits (`bf16_ties`). The token counts are
+# cut for the script's time limit (at 64 and 16 on an NVIDIA H100 80GB HBM3
+# at 700 W, the rows that parted did so at tokens 13-18).
+PARALLEL_DECODE = dict(language="en", sample_len=32, kv_dtype="int8",
+                       without_timestamps=True)
+PARALLEL_SERVE = dict(scheduler="continuous", batch_size=4, language="en",
+                      kv_dtype="int8", sample_len=8, chunk_tokens=8,
+                      temperature=(0.0,), no_speech_threshold=None,
+                      without_timestamps=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, fn, args, q):
+    """A spawned rank: torchrun's environment, `initialize_distributed`
+    (which picks gloo: the ranks share one card), then fn(*args)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    try:
+        from openai_whisper_coreml_tpu_torch.parallel import initialize_distributed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        initialize_distributed(timeout_s=PARALLEL_TIMEOUT_S)
+        try:
+            q.put((rank, True, fn(*args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which fails the phase
+        q.put((rank, False, traceback.format_exc()))
+
+
+def run_ranks(world: int, fn, *args) -> list:
+    """fn(*args) on `world` spawned ranks (the parent holds a CUDA context,
+    so spawn, never fork); every rank's result. A rank that fails or hangs
+    fails the phase, and no rank outlives the call."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, fn, args, q),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        while len(results) + len(errors) < world:
+            try:
+                rank, ok, value = q.get(timeout=PARALLEL_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"ranks silent for {PARALLEL_TIMEOUT_S} s")
+                break
+            (results.__setitem__(rank, value) if ok
+             else errors.append(f"rank {rank}:\n{value}"))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    if errors:
+        raise AssertionError("parallel ranks failed:\n" + "\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def kernel_counters() -> dict:
+    """Name -> (wrapper module, its launch counter); K1, its causal mode and
+    K5 are one CUDA kernel whose wrapper counts each mode apart."""
+    from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
+    from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
+    from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
+    from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
+    from openai_whisper_coreml_tpu_torch.ops import sqa_v3 as sv
+
+    return {"flash_attention": (fa, "launches"),
+            "flash_attention_causal": (fa, "launches_causal"),
+            "flash_attention_online": (fa, "launches_online"),
+            "log_mel": (mk, "launches"), "sqa_self": (ss, "launches"),
+            "sqa_int8": (si, "launches"), "sqa_v3": (sv, "launches")}
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+# the training cases of the phase (tiny at full width, fp32): two updates of
+# two micro-batches with a clip that acts, and one LoRA step on an int8
+# base with adapters on column- and row-parallel linears. AdamW's eps = 1
+# keeps each update proportional to its gradient: at eps = 1e-6 an element
+# whose gradient sits near eps turns the float noise of another summation
+# order into 1e-4 of its update, sharded or not.
+PARALLEL_TRAIN = {
+    "full": (dict(accum_steps=2, max_grad_norm=0.05, learning_rate=1e-3, eps=1.0,
+                  flash=True), False, 4),
+    "lora": (dict(trainable="lora_", learning_rate=1e-2, eps=1.0), True, 1),
+}
+
+
+def parallel_train_run(case: str, mesh=None):
+    """(losses, the gathered tree as flat CPU tensors) of one case."""
+    from openai_whisper_coreml_tpu_torch.config import get_config
+    from openai_whisper_coreml_tpu_torch.lora import add_lora
+    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
+    from openai_whisper_coreml_tpu_torch.parallel import gather_params
+    from openai_whisper_coreml_tpu_torch.params import init_params
+    from openai_whisper_coreml_tpu_torch.quantize import quantize_params
+    from openai_whisper_coreml_tpu_torch.tokenizer import get_tokenizer
+    from openai_whisper_coreml_tpu_torch.train import (TrainConfig, make_batch,
+                                                        make_train_step)
+    from openai_whisper_coreml_tpu_torch.utils.checkpoint import flatten_params
+
+    tc_kw, lora, steps = PARALLEL_TRAIN[case]
+    cfg = get_config("tiny")
+    tree = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       dtype=torch.float32, device="cuda")
+    if lora:
+        tree = add_lora(quantize_params(tree), rank=8, seed=1,
+                        targets=r"(attn|cross_attn)/(q|v|out)$|mlp/fc2$")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+
+        def seed_b(node):  # B from zero would leave A no gradient in one step
+            if not isinstance(node, dict):
+                return node
+            out = {k: seed_b(v) for k, v in node.items()}
+            if "lora_b" in node:
+                out["lora_b"] = 0.02 * torch.randn(node["lora_b"].shape, generator=gen,
+                                                   device="cuda")
+            return out
+
+        tree = seed_b(tree)
+    model = model_from_params(cfg, tree, mesh=mesh)
+    init_fn, step_fn = make_train_step(cfg, TrainConfig(**tc_kw), mesh=mesh)
+    model, state = init_fn(model)
+    tok = get_tokenizer(cfg)
+    rng = np.random.default_rng(7)
+    losses = []
+    for s in range(steps):
+        mel = rng.standard_normal((4, cfg.n_mels, 3000)).astype(np.float32)
+        # data halves with unequal token counts
+        texts = [f"one two three four five six {s}", f"seven eight nine {s} ten",
+                 f"x {s}", f"{s}"]
+        batch = make_batch(cfg, tok, mel, texts, max_len=24)
+        model, state, metrics = step_fn(model, state, *batch)
+        losses.append(float(metrics["loss"]))
+    return losses, {k: v.detach().cpu() for k, v in
+                    flatten_params(gather_params(model)).items()}
+
+
+def rank_phase(n_data: int, n_model: int, inputs: str, serve: bool, train: bool) -> dict:
+    """One mesh's work on this rank: fp32 parity at large-v3-turbo's widths,
+    then (serve) large-v3 bf16 int8 serving, then (train) the training
+    cases; on rank 0 the one-process training runs too, for the check."""
+    import torch.distributed as dist
+
+    import openai_whisper_coreml_tpu_torch as wt
+    from openai_whisper_coreml_tpu_torch.config import get_config
+    from openai_whisper_coreml_tpu_torch.parallel import make_mesh
+
+    kernels = kernel_counters()
+    mesh = make_mesh(n_data, n_model)
+    tag = f"{n_data}x{n_model} rank {dist.get_rank()}"
+    data = np.load(inputs)
+    out = {}
+    cfg = get_config("large-v3-turbo")
+    model = wt.build_model(cfg, dtype=torch.float32, seed=0, device="cuda", mesh=mesh)
+    mel = torch.as_tensor(data["mel"], device="cuda")
+    idle = PARALLEL_IDLE + ("log_mel", "sqa_self")
+    with main_path(f"parallel fp32 {tag}", kernels, idle=idle) as calls:
+        with torch.no_grad():
+            out["logits"] = model.logits(data["tokens"], model.encode(mel)).cpu().numpy()
+        res = wt.decode(model, mel, wt.DecodingOptions(
+            language="en", sample_len=32, kv_dtype="int8"))
+    out["greedy"] = [r.tokens for r in res]
+    out["fp32_calls"] = dict(calls)
+    out["fp32_launches"] = read_counts(kernels)
+    del model
+    torch.cuda.empty_cache()
+
+    if serve:
+        model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
+                              device="cuda", mesh=mesh)
+        out["param_bytes"] = param_bytes(model)
+        t = time.perf_counter()
+        with main_path(f"parallel decode {tag}", kernels, idle=PARALLEL_IDLE) as calls:
+            res = wt.decode(model, model.log_mel(data["audio"]),
+                            wt.DecodingOptions(**PARALLEL_DECODE))
+        out["decode_s"] = time.perf_counter() - t
+        out["decode"] = [r.tokens for r in res]
+        out["decode_launches"] = read_counts(kernels)
+        out["decode_steps"] = calls["steps"]
+        clips = [data[f"clip{i}"] for i in range(6)]
+        t = time.perf_counter()
+        with main_path(f"parallel transcribe_batch {tag}", kernels,
+                       idle=PARALLEL_IDLE) as calls:
+            results = wt.transcribe_batch(model, clips,
+                                          wt.ServeOptions(**PARALLEL_SERVE))
+        out["batch_s"] = time.perf_counter() - t
+        out["batch"] = [[t for s in r["segments"] for t in s["tokens"]] for r in results]
+        out["batch_launches"] = read_counts(kernels)
+        out["batch_steps"] = calls["steps"]
+        del model
+        torch.cuda.empty_cache()
+
+    if train:
+        for case in PARALLEL_TRAIN:
+            t = time.perf_counter()
+            losses, tree = parallel_train_run(case, mesh)
+            out[f"train_{case}_s"] = time.perf_counter() - t
+            out[f"train_{case}"] = losses
+            if dist.get_rank() == 0:
+                want_losses, want = parallel_train_run(case)
+                pairs = [(tree[k].float(), v.float()) for k, v in want.items()]
+                out[f"train_{case}_ref"] = want_losses
+                # relative to each leaf's scale
+                out[f"train_{case}_leaf_err"] = max(
+                    float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                    for g, w in pairs)
+                out[f"train_{case}_leaves_close"] = set(tree) == set(want) and all(
+                    torch.allclose(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+                    for g, w in pairs)
+    return out
+
+
+def int8_logits(model, feats, prompt, tokens, i: int) -> torch.Tensor:
+    """The model's logits (fp32, on the host) after prompt + tokens[:i],
+    over int8 cross-KV as the decodes run (one prefill, no cache reuse)."""
+    from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+
+    cfg = model.cfg
+    seq = torch.tensor([prompt + tokens[:i]], device="cuda")
+    cross = dec_mod.precompute_cross(model.decoder, feats, "int8")
+    cache = dec_mod.init_kv_cache(cfg, 1, feats.dtype, feats.device)
+    with torch.no_grad():
+        logits, _ = dec_mod.decode_step(model.decoder, seq, cross, cache, 0)
+    return logits[0, -1].float().cpu()
+
+
+def first_difference(p, q, eot: int) -> tuple:
+    """(i, p's token there, q's token there) where two token lists part."""
+    i = next((j for j, (a, b) in enumerate(zip(p, q)) if a != b), min(len(p), len(q)))
+    return i, (p[i] if i < len(p) else eot), (q[i] if i < len(q) else eot)
+
+
+def bf16_ties(model, model32, mels, plain, got, prompt) -> list:
+    """The fp32 gate's near-tie rule at bf16 spacing, for each row where
+    the sharded model's tokens `got` leave the unsharded model's `plain`:
+    (row, position, the unsharded model's margin between its token and the
+    sharded model's, its bf16 error there, the same weights' fp32 margin
+    for the sharded model's token). The bf16 error is the largest gap
+    between the unsharded model's logits and the same weights' computed in
+    fp32 (`model32`); a margin within twice that is a tie that bf16 cannot
+    order (the sharded model rounds in other places: it sums fp32 partials,
+    where the unsharded model rounds each whole product to bf16)."""
+    out, feats = [], None
+    for row, (p, q) in enumerate(zip(plain, got)):
+        if p == q:
+            continue
+        if feats is None:
+            feats, feats32 = model.encode(mels), model32.encode(mels)
+        i, a, b = first_difference(p, q, model.cfg.eot_token)
+        logits = int8_logits(model, feats[row:row + 1], prompt, p, i)
+        logits32 = int8_logits(model32, feats32[row:row + 1], prompt, p, i)
+        out.append((row, i, abs(float(logits[a] - logits[b])),
+                    float((logits - logits32).abs().max()),
+                    float(logits32[b] - logits32[a])))
+    return out
+
+
+def _float32(tree):
+    """A parameter tree with its float leaves in fp32 (int8 leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def parallel_slice(wt, model, kernels) -> dict:
+    """The DP x TP mesh on spawned ranks sharing the card over gloo: fp32
+    parity of (1, 2), (2, 1) and (2, 2) against the unsharded turbo-width
+    model in this process; large-v3 bf16 int8 serving on (1, 2) beside
+    `model` (the unsharded large-v3 int8 of the serving phases); training
+    on (1, 2) and (2, 1) against the one-process step; the CLI under
+    torch.distributed.run with --tensor-parallel 2."""
+    from openai_whisper_coreml_tpu_torch.config import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config("large-v3-turbo")
+    ref = wt.build_model(cfg, dtype=torch.float32, seed=0, device="cuda")
+    audio = (np.random.default_rng(4).standard_normal((4, 480_000)) * 0.1
+             ).astype(np.float32)
+    mel = ref.log_mel(audio)
+    tokens = np.random.default_rng(5).integers(0, cfg.n_vocab, (4, 8))
+    feats = ref.encode(mel)
+    with torch.no_grad():
+        want_logits = ref.logits(tokens, feats).cpu().numpy()
+    want = [r.tokens for r in wt.decode(ref, mel, wt.DecodingOptions(
+        language="en", sample_len=32, kv_dtype="int8"))]
+    clips = [speechy(s, 40 + i) for i, s in enumerate((8, 12, 16, 20, 10, 14))]
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, mel=mel.cpu().numpy(), tokens=tokens, audio=audio,
+                 **{f"clip{i}": c for i, c in enumerate(clips)})
+        ranks = {}
+        for n_data, n_model in ((1, 2), (2, 1), (2, 2)):
+            t = time.perf_counter()
+            ranks[(n_data, n_model)] = run_ranks(
+                n_data * n_model, rank_phase, n_data, n_model, inputs,
+                (n_data, n_model) == (1, 2), n_data * n_model == 2)
+            log(f"parallel {n_data}x{n_model}: {time.perf_counter() - t:.1f} s wall "
+                f"on {card()} (ranks spawned and joined; gloo stages every "
+                f"collective through the host: no multi-card figure)")
+
+    tok = wt.get_tokenizer(cfg, language="en")
+    prompt = [tok.sot, tok.language_token("en"), tok.transcribe]
+    summary = {}
+    for mesh, results in ranks.items():
+        for r, res in enumerate(results):
+            err = float(np.abs(res["logits"] - want_logits).max())
+            margins = []
+            for row, (p, q) in enumerate(zip(want, res["greedy"])):
+                if p == q:
+                    continue
+                i, a, b = first_difference(p, q, cfg.eot_token)
+                logits = int8_logits(ref, feats[row:row + 1], prompt, p, i)
+                margins.append((row, i, abs(float(logits[a] - logits[b]))))
+            k1 = res["fp32_launches"]["flash_attention"]
+            log(f"parallel fp32 {mesh} rank {r}: logits max_abs {err:.3e}; rows equal "
+                f"{[p == q for p, q in zip(want, res['greedy'])]}; first-difference "
+                f"margins {margins}; K1 {k1} for {res['fp32_calls']['encode']} "
+                f"encodes, K6 {res['fp32_launches']['sqa_int8']}")
+            if (err > 1e-3 or any(m >= 1e-4 for _, _, m in margins)
+                    or k1 != cfg.n_audio_layer * res["fp32_calls"]["encode"]):
+                raise AssertionError(f"parallel fp32 parity failed on {mesh} rank {r}")
+            summary[f"fp32_{mesh[0]}x{mesh[1]}_logits_max_abs"] = max(
+                err, summary.get(f"fp32_{mesh[0]}x{mesh[1]}_logits_max_abs", 0.0))
+    del ref, feats
+    torch.cuda.empty_cache()
+
+    # serving on (1, 2) beside the unsharded large-v3 int8 model, and the
+    # same weights computed in fp32 (model32) for the rows that part
+    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
+    from openai_whisper_coreml_tpu_torch.params import params_tree
+    from openai_whisper_coreml_tpu_torch.serve import _batched_mels, _windows_for
+
+    lcfg = get_config("large-v3")
+    dec_mel = model.log_mel(audio)
+    plain_dec = [r.tokens for r in wt.decode(model, dec_mel,
+                                             wt.DecodingOptions(**PARALLEL_DECODE))]
+    plain_batch = [[t for s in r["segments"] for t in s["tokens"]] for r in
+                   wt.transcribe_batch(model, clips, wt.ServeOptions(**PARALLEL_SERVE))]
+    batch_mel = torch.stack([_windows_for(m, len(c), 0)[0].mel
+                             for m, c in zip(_batched_mels(model, clips), clips)])
+    model32 = model_from_params(lcfg, _float32(params_tree(model)))
+    prompt = list(wt.get_tokenizer(lcfg, language="en")
+                  .sot_sequence_including_notimestamps)
+    full_bytes = param_bytes(model)
+    for r, res in enumerate(ranks[(1, 2)]):
+        share = res["param_bytes"] / full_bytes
+        toks = [t for row in res["decode"] + res["batch"] for t in row]
+        agree_dec = [p == q for p, q in zip(plain_dec, res["decode"])]
+        agree_batch = [p == q for p, q in zip(plain_batch, res["batch"])]
+        ties = (bf16_ties(model, model32, dec_mel, plain_dec, res["decode"], prompt)
+                + bf16_ties(model, model32, batch_mel, plain_batch, res["batch"], prompt))
+        log(f"parallel serving 1x2 rank {r} (large-v3 bf16, int8 weights and "
+            f"cross-KV, bf16 cache): {res['param_bytes']} parameter bytes of the "
+            f"unsharded {full_bytes} ({share:.4f}); decode of 4 windows x {PARALLEL_DECODE['sample_len']} tokens "
+            f"{res['decode_s']:.2f} s ({res['decode_steps']} steps, launches "
+            f"{res['decode_launches']}), equal to the unsharded model {agree_dec}; "
+            f"transcribe_batch of 6 requests (continuous) {res['batch_s']:.2f} s "
+            f"({res['batch_steps']} steps, launches {res['batch_launches']}), equal "
+            f"{agree_batch}; on {card()}")
+        log(f"parallel serving 1x2 rank {r}: rows that part (row, position, unsharded "
+            f"margin, its bf16 error, fp32 margin for the sharded token) {ties}")
+        if share > 0.57 or not toks or not all(0 <= t < lcfg.n_vocab for t in toks):
+            raise AssertionError(f"parallel serving failed on rank {r}")
+        if any(m > 2 * e for _, _, m, e, _ in ties):
+            raise AssertionError(f"parallel serving rank {r}: a row parts from the "
+                                 f"unsharded model beyond a bf16 tie: {ties}")
+        for key in ("decode_launches", "batch_launches"):
+            if not all(res[key][k] for k in ("flash_attention", "log_mel",
+                                             "sqa_self", "sqa_int8")):
+                raise AssertionError(f"parallel serving rank {r}: {key} {res[key]}")
+        summary[f"serve_rank{r}_param_share"] = share
+        summary[f"serve_rank{r}_decode_s"] = res["decode_s"]
+        summary[f"serve_rank{r}_batch_s"] = res["batch_s"]
+        summary[f"serve_rank{r}_rows_equal"] = sum(agree_dec + agree_batch)
+    summary["serve_param_bytes_unsharded"] = full_bytes
+    del model32
+    torch.cuda.empty_cache()
+
+    for mesh in ((1, 2), (2, 1)):
+        res = ranks[mesh][0]
+        for case in PARALLEL_TRAIN:
+            got, ref_losses = res[f"train_{case}"], res[f"train_{case}_ref"]
+            others_equal = all(o[f"train_{case}"] == got for o in ranks[mesh][1:])
+            log(f"parallel training {mesh} {case}: losses {got}, one process "
+                f"{ref_losses}; leaves within rtol 1e-5 {res[f'train_{case}_leaves_close']} "
+                f"(worst relative error {res[f'train_{case}_leaf_err']:.3e}); "
+                f"{res[f'train_{case}_s']:.2f} s")
+            if (not np.allclose(got, ref_losses, rtol=1e-5) or not others_equal
+                    or not res[f"train_{case}_leaves_close"]):
+                raise AssertionError(f"parallel training failed: {mesh} {case}")
+
+    summary["cli_s"] = parallel_cli()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel_slice: {summary['phase_s']:.1f} s on {card()}")
+    return summary
+
+
+def parallel_cli() -> float:
+    """The CLI on a 35 s WAV (two 224-token windows) at large-v3-turbo int8
+    (large-v3's widths and encoder, a 4-layer decoder) under
+    torch.distributed.run with two ranks and --tensor-parallel 2: rank 0
+    alone writes the files and reports them. The decoder's depth is cut
+    for time: a large-v3 step of two ranks sharing the card cost
+    0.26-0.41 s on an NVIDIA H100 80GB HBM3 at 700 W (each of its 96
+    all-reduces waits for the other process's turn on the card), and the
+    clip took 147 s there (a 20 s clip 76-114 s); decode and
+    transcribe_batch hold large-v3's depth."""
+    from openai_whisper_coreml_tpu_torch.config import get_config
+    from openai_whisper_coreml_tpu_torch.utils.audio_io import save_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "clip.wav")
+        save_wav(wav, speechy(35, 5))
+        out_dir = os.path.join(tmp, "out")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "openai_whisper_coreml_tpu_torch", wav,
+             "--model", "large-v3-turbo", "--quantize", "int8", "--kv-dtype", "int8",
+             "--dtype", "bfloat16", "--temperature-increment-on-fallback", "0",
+             "--output-format", "all", "--language", "en", "--tensor-parallel", "2",
+             "--output-dir", out_dir],
+            capture_output=True, text=True, timeout=PARALLEL_TIMEOUT_S, env=env, cwd=root)
+        seconds = time.perf_counter() - t
+        reports = [l for l in proc.stderr.splitlines() if " -> " in l]
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        log(f"parallel cli (torch.distributed.run, 2 ranks, --tensor-parallel 2): "
+            f"rc {proc.returncode}, {seconds:.1f} s wall on {card()}; files {files}; "
+            f"reports {reports}; stdout {proc.stdout.strip()[-300:]!r}")
+        if (proc.returncode != 0 or len(reports) != 1
+                or files != [f"clip.{f}" for f in ("json", "srt", "tsv", "txt", "vtt")]):
+            raise AssertionError(f"parallel cli failed:\n{proc.stderr[-3000:]}")
+        with open(os.path.join(out_dir, "clip.json"), encoding="utf-8") as f:
+            check_segments(json.load(f), get_config("large-v3-turbo"), 35.0)
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3032,13 +3529,7 @@ def main() -> int:
     log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # name -> (wrapper module, its launch counter); K1, its causal mode and
-    # K5 are one CUDA kernel whose wrapper counts each mode apart
-    kernels = {"flash_attention": (fa, "launches"),
-               "flash_attention_causal": (fa, "launches_causal"),
-               "flash_attention_online": (fa, "launches_online"),
-               "log_mel": (mk, "launches"), "sqa_self": (ss, "launches"),
-               "sqa_int8": (si, "launches"), "sqa_v3": (sv, "launches")}
+    kernels = kernel_counters()
 
     # by library name; K3 (ss), K6 (si) and K2 (sv) are entry points of one
     # library
@@ -3085,6 +3576,7 @@ def main() -> int:
                  {**served, "scheduler": "continuous", "beam_size": 2,
                   "chunk_tokens": 16}, WORDS_IDLE)
     multistream_slice(model, kernels)
+    parallel = parallel_slice(wt, model, kernels)
     profile_step(model, ss, si)
     del model
     torch.cuda.empty_cache()
@@ -3105,6 +3597,7 @@ def main() -> int:
     log("trained pair: " + json.dumps({k: pair[k] for k in (
         "acceptance_rate", "tokens_per_iter", "wer_plain", "wer_spec", "card")}))
     log("profile: " + json.dumps(profile))
+    log("parallel: " + json.dumps(parallel))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card())

@@ -189,7 +189,7 @@ def beam_decode_core(
     cross_kv = type(cross_b)(*(t.repeat_interleave(k, dim=1) for t in cross_b))
     cache_len = min(-(-total_len // 128) * 128, cfg.n_text_ctx)
     cache = dec_mod.init_cache(cfg, bk, audio_features.dtype, dev, ctx=cache_len,
-                               cache_dtype=cache_dtype)
+                               cache_dtype=cache_dtype, n_head=decoder.n_head)
 
     tokens = torch.full((bk, total_len), eot, dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init

@@ -15,10 +15,18 @@ subtitle options (`--max-line-width`, `--max-line-count`,
 model sharing the tokenizer (`speculative.py`), in files and with
 `--stream`. `--profile-dir` writes a torch.profiler trace of each file's
 transcription (CPU ops and CUDA kernels; `utils/profiling.device_trace`).
-`--tensor-parallel` above 1 raises with a message naming ROADMAP.md: its
-module is not ported yet. Left
-out is the JAX CLI's `--batch`, which it never reads. The models are built
-on the card; without one, loading them raises.
+`--tensor-parallel N` shards the model over N ranks per model group
+(`parallel/`): launch one process per rank with torchrun,
+
+    torchrun --nproc-per-node W -m openai_whisper_coreml_tpu_torch f.wav \
+        --model large-v3 --tensor-parallel N
+
+which makes a (W / N, N) mesh, as JAX's CLI makes a (devices / N, N) one;
+`--draft-model` loads on the same mesh, and rank 0 alone prints and
+writes the output files. `--stream` and `--word-timestamps` do not run
+under a mesh yet (ROADMAP.md). Left out is the JAX CLI's `--batch`, which
+it never reads. The models are built on the card; without one, loading
+them raises.
 """
 
 from __future__ import annotations
@@ -122,23 +130,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens per speculative verify step")
     p.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
-                   help="shard over N cards (not ported yet; 1 only)")
+                   help="shard each model over N ranks (torchrun "
+                        "--nproc-per-node W: a (W/N, N) data x model mesh)")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tensor_parallel > 1:
-        raise NotImplementedError(
-            "--tensor-parallel > 1 (parallel/) is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1)")
+    if args.tensor_parallel <= 1:
+        return _run(args)
+    import torch.distributed as dist
 
+    from .parallel.mesh import launch_mesh
+
+    joined = dist.is_initialized()
+    mesh = launch_mesh(args.tensor_parallel, "--tensor-parallel")
+    try:
+        return _run(args, mesh)
+    finally:
+        if not joined:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh=None) -> int:
     import torch
 
     from . import load_model
     from .audio import load_audio
+    from .parallel.distributed import is_main_process
     from .utils.writers import write_result
+
+    main_rank = is_main_process()
+    on_mesh = {} if mesh is None else {"mesh": mesh}
 
     if args.vocab:
         import os
@@ -150,15 +174,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t0 = time.time()
     model = load_model(args.model, dtype=dtype, quantize=args.quantize,
-                       checkpoint=args.checkpoint)
+                       checkpoint=args.checkpoint, **on_mesh)
     draft = None
     if args.draft_model:
         from .speculative import check_pair
 
         draft = load_model(args.draft_model, dtype=dtype, quantize=args.quantize,
-                           checkpoint=args.draft_checkpoint)
+                           checkpoint=args.draft_checkpoint, **on_mesh)
         check_pair(model.cfg, draft.cfg)
-    if args.verbose:
+    if args.verbose and main_rank:
         print(f"loaded {args.model} ({model.num_params / 1e6:.0f}M params) "
               f"on {model.device} in {time.time() - t0:.1f}s",
               file=sys.stderr)
@@ -179,7 +203,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         except (OSError, ValueError, EOFError) as e:  # EOFError: empty/truncated WAV header
             # per-file isolation: a missing or corrupt file must not end a
             # multi-file run
-            print(f"{path}: skipped ({e})", file=sys.stderr)
+            if main_rank:
+                print(f"{path}: skipped ({e})", file=sys.stderr)
             status = 1
             continue
         duration = len(audio) / 16_000
@@ -208,8 +233,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             mel = model.log_mel(pad_or_trim(audio))
             codes, probs = detect_language(model, mel[None])
             top = sorted(probs[0].items(), key=lambda kv: -kv[1])[:5]
-            print(f"{path}: {codes[0]}  "
-                  + "  ".join(f"{c}={p:.3f}" for c, p in top))
+            if main_rank:
+                print(f"{path}: {codes[0]}  "
+                      + "  ".join(f"{c}={p:.3f}" for c, p in top))
             continue
 
         with device_trace(args.profile_dir):
@@ -232,7 +258,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 vad_filter=args.vad_filter,
                 hallucination_silence_threshold=(
                     args.hallucination_silence_threshold),
-                verbose=args.verbose,
+                verbose=args.verbose and main_rank,
                 best_of=args.best_of,
                 beam_size=args.beam_size,
                 patience=args.patience,
@@ -244,6 +270,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 spec_k=args.spec_k,
             )
         elapsed = time.time() - t0
+        if not main_rank:
+            continue
         out = write_result(result, path, args.output_dir, args.output_format,
                            highlight_words=args.highlight_words,
                            max_line_width=args.max_line_width,

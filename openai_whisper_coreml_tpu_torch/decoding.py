@@ -16,6 +16,12 @@ function of those, as it is in JAX (`fold_in(fold_in(key, pos), row)`);
 JAX's threefry bits cannot be reproduced, so the two match in distribution
 only. A draft model (`decode(draft=...)`) routes greedy and sampled rungs
 through speculative decoding (`speculative.py`), as JAX routes them.
+
+Under a (data, model) mesh (`parallel/`), `decode` and `detect_language`
+pad the batch to the data axis by repeating its last row, each data group
+decodes its rows, and the results are gathered onto every rank. The noise
+of a sampled row is keyed by its row in the whole batch, so a sampled
+decode under DP draws what the one-card decode draws.
 """
 
 from __future__ import annotations
@@ -272,12 +278,13 @@ def uniform_noise(seed: int, rows: torch.Tensor, pos: Union[int, torch.Tensor],
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
-                  pos: int) -> torch.Tensor:
+                  pos: int, row0: int = 0) -> torch.Tensor:
     """One token per row of (B, V) logits: argmax at temperature 0, else a
-    draw from softmax(logits / temperature) keyed by (seed, row, pos)."""
+    draw from softmax(logits / temperature) keyed by (seed, row, pos); row
+    i is row row0 + i of the whole batch."""
     if temperature <= 0:
         return logits.argmax(dim=-1)
-    rows = torch.arange(logits.shape[0], device=logits.device)
+    rows = torch.arange(row0, row0 + logits.shape[0], device=logits.device)
     noise = gumbel_noise(seed, rows, pos, logits.shape[-1])
     return (logits / max(temperature, 1e-6) + noise).argmax(dim=-1)
 
@@ -303,6 +310,7 @@ def greedy_decode_core(
     cache_dtype: str = "bf16",
     temperature: float = 0.0,
     seed: int = 0,
+    row0: int = 0,  # the batch's first row in the whole batch (the noise's row)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy (temperature 0) or sampled decode; returns (tokens
     (B, P+sample_len), sum_logprobs, n_sampled, no_speech_prob). prompt_len
@@ -317,7 +325,8 @@ def greedy_decode_core(
     cross_kv = dec_mod.precompute_cross(decoder, audio_features, kv_dtype)
     cache_len = min(-(-total_len // 128) * 128, cfg.n_text_ctx)
     cache = dec_mod.init_cache(cfg, b, audio_features.dtype, dev,
-                               ctx=cache_len, cache_dtype=cache_dtype)
+                               ctx=cache_len, cache_dtype=cache_dtype,
+                               n_head=decoder.n_head)
     self_kernel = dec_mod.use_self_kernel(cache)
     pad_len = torch.as_tensor(pad_len, device=dev)
 
@@ -342,7 +351,7 @@ def greedy_decode_core(
         filtered = _apply_logit_rules(
             logits, tokens, pos, cfg, prompt_len, suppress_mask, blank_mask,
             use_timestamps, ts_max, max_initial_ts_index)
-        tok = sample_tokens(filtered, temperature, seed, pos)
+        tok = sample_tokens(filtered, temperature, seed, pos, row0)
         tok_lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
 
         tok = torch.where(finished, eot, tok)
@@ -371,7 +380,8 @@ def _detect_language_core(decoder: dec_mod.TextDecoder,
     b = audio_features.shape[0]
     dev = audio_features.device
     cross_kv = dec_mod.precompute_cross_kv(decoder, audio_features)
-    cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev)
+    cache = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev,
+                                  n_head=decoder.n_head)
     sot = torch.full((b, 1), cfg.sot_token, dtype=torch.long, device=dev)
     logits, _ = dec_mod.decode_step(decoder, sot, cross_kv, cache, 0,
                                     self_kernel=dec_mod.use_self_kernel(cache))
@@ -384,14 +394,29 @@ def _detect_language_core(decoder: dec_mod.TextDecoder,
     return lang_probs.argmax(dim=-1), lang_probs
 
 
+def _rows(x, lo: int, hi: int, n: int):
+    """Rows [lo, hi) of a batch of n (a tensor or list), the last row
+    repeated past n (the data-axis padding)."""
+    idx = [min(i, n - 1) for i in range(lo, hi)]
+    return x[idx] if torch.is_tensor(x) else [x[i] for i in idx]
+
+
 def detect_language(model, mel_or_features, *, from_features: bool = False):
     """Language ID: returns (codes: List[str], probs: List[Dict[str, float]])
     from the SOT-step logits restricted to the language tokens."""
+    from .parallel.mesh import data_ways, split_over_data
+
     cfg = model.cfg
     if not cfg.multilingual:
         raise ValueError("language detection requires a multilingual model")
     x = torch.as_tensor(mel_or_features, device=model.device)
     x = x if x.ndim == 3 else x[None]
+    mesh = getattr(model, "mesh", None)
+    if data_ways(mesh) > 1:
+        n = x.shape[0]
+        pairs = split_over_data(mesh, n, lambda lo, hi: list(zip(*detect_language(
+            model, _rows(x, lo, hi, n), from_features=from_features))), pad=True)
+        return [c for c, _ in pairs], [p for _, p in pairs]
     feats = x if from_features else model.encode(x)
     idx, probs = _detect_language_core(model.decoder, feats)
     idx = idx.cpu().numpy()
@@ -467,7 +492,40 @@ def decode(
     rungs; beam, best_of fan-outs and an int8 self-cache keep the plain
     loop. Every greedy or sampled call walls its decode core into
     speculative.LAST_TIMING (None for beam and best_of), and a speculative
-    one sets speculative.LAST_STATS and adds to speculative.TOTALS."""
+    one sets speculative.LAST_STATS and adds to speculative.TOTALS.
+
+    Under a mesh (`model.mesh`) the draft must be on the same mesh."""
+    from .parallel.mesh import data_ways, split_over_data
+
+    mesh = getattr(model, "mesh", None)
+    if draft is not None and getattr(draft, "mesh", None) is not mesh:
+        raise ValueError("the draft must be built on the target's mesh "
+                         "(load_model(..., mesh=model.mesh))")
+    kw = dict(from_features=from_features, tokenizer=tokenizer, seed=seed,
+              draft=draft)
+    if data_ways(mesh) == 1:
+        return _decode_rows(model, mel_or_features, options, **kw)
+    x = torch.as_tensor(mel_or_features, device=model.device)
+    x = x if x.ndim == 3 else x[None]
+    n = x.shape[0]
+    prompt = options.prompt
+    per_sample = (isinstance(prompt, (list, tuple)) and len(prompt) == n
+                  and prompt and not isinstance(prompt[0], (int, np.integer)))
+
+    def run(lo: int, hi: int) -> List[DecodingResult]:
+        opts = options
+        if per_sample:
+            opts = dataclasses.replace(options, prompt=_rows(prompt, lo, hi, n))
+        return _decode_rows(model, _rows(x, lo, hi, n), opts, row0=lo, **kw)
+
+    return split_over_data(mesh, n, run, pad=True)
+
+
+def _decode_rows(model, mel_or_features, options: DecodingOptions, *,
+                 from_features: bool, tokenizer: Optional[Tokenizer], seed: int,
+                 draft, row0: int = 0) -> List[DecodingResult]:
+    """`decode` on the rows one data group holds (all of them without a
+    mesh); row0 is their first row in the whole batch."""
     from . import speculative as spec_mod
 
     cfg = model.cfg
@@ -603,7 +661,7 @@ def decode(
             suppress_mask, blank_mask, max_init_idx, pad, sot_index,
             sample_len=sample_len, spec_k=options.spec_k,
             sampled=options.temperature > 0, temperature=options.temperature,
-            seed=seed, **core_kw)
+            seed=seed, row0=row0, **core_kw)
     else:
         # best_of: independent sampled candidates per row, ranked by average
         # log-prob (openai semantics; only meaningful at temperature > 0)
@@ -616,7 +674,7 @@ def decode(
         tokens, sum_lp, n_sampled, no_speech_prob = greedy_decode_core(
             model.decoder, feats, initial, suppress_mask, blank_mask,
             max_init_idx, pad, sot_index, temperature=options.temperature,
-            seed=seed, sample_len=sample_len,
+            seed=seed, row0=row0 * n_cand, sample_len=sample_len,
             cache_dtype=options.cache_dtype, **core_kw)
 
     tokens = tokens.cpu().numpy()

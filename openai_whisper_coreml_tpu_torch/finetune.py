@@ -5,19 +5,28 @@ Corpus layouts: those `eval.harness.discover` finds (flat <name>.wav +
 <name>.txt pairs, or LibriSpeech trees). Training runs `train.make_train_step`
 on one device, the card unless `--device cpu` is given, and writes
 safetensors checkpoints (and, with `--save-state`, the full train state for
-an exact `--resume`). The flags are the JAX tool's; `--mesh-model` takes 1
-only. `--flash` puts the Hopper flash kernel on the training path: the
-encoder's attention and the decoder's causal teacher forcing. On the card
-each utterance's log-mel runs the log-mel kernel once.
+an exact `--resume`). The flags are the JAX tool's. `--flash` puts the
+Hopper flash kernel on the training path: the encoder's attention and the
+decoder's causal teacher forcing. On the card each utterance's log-mel
+runs the log-mel kernel once.
+
+Under torchrun the run is data- and tensor-parallel (`parallel/`): a
+(world / N, N) mesh for `--mesh-model N`, each rank training on its data
+rank's rows of every batch (which the data axis must divide). Rank 0 alone
+prints and writes checkpoints and train states (gathered from every
+rank's shards); `--resume` reads the full state on every rank.
 
 Usage:
   python -m openai_whisper_coreml_tpu_torch.finetune /data/corpus \\
       --model tiny --steps 100 --batch-size 8 --save-every 50 --output ckpts/ft
+  torchrun --nproc-per-node 4 -m openai_whisper_coreml_tpu_torch.finetune \\
+      /data/corpus --model large-v3 --mesh-model 2 --batch-size 8
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import sys
 import time
 from typing import Optional
@@ -101,15 +110,28 @@ def run_eval(eval_fn, model, batches):
     return tot_loss / denom, tot_acc / denom
 
 
+def _map_opt_state(fn, model, opt_state):
+    """fn(model, {name: tensor}) applied to the optimizer state's per-name
+    tensors (moments, accumulation window)."""
+    return {k: (fn(model, v) if isinstance(v, dict) else v)
+            for k, v in opt_state.items()}
+
+
 def restore(path: str, model, device) -> tuple:
     """Load a `--save-state` directory into the model in place: returns
-    (opt_state on `device`, the saved step)."""
+    (opt_state on `device`, the saved step). Under a mesh every rank reads
+    the full state and keeps its shards."""
     from .params import assign_params
+    from .parallel.sharding import shard_named, shard_params
     from .utils.checkpoint import restore_train_state
 
     state = restore_train_state(path, map_location=device)
-    assign_params(model, state["params"])
-    return state["opt_state"], int(state["step"])
+    params, opt_state = state["params"], state["opt_state"]
+    if model.mesh is not None:
+        params = shard_params(params, model.cfg, model.mesh)
+        opt_state = _map_opt_state(shard_named, model, opt_state)
+    assign_params(model, params)
+    return opt_state, int(state["step"])
 
 
 def _device(name: Optional[str]) -> torch.device:
@@ -142,7 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "optimizer update (effective batch = "
                          "batch-size * accum-steps)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="TP degree (only 1: the mesh is not ported yet)")
+                    help="TP degree under torchrun: a (world/N, N) data x "
+                         "model mesh")
     ap.add_argument("--max-len", type=int, default=None,
                     help="token sequence cap (default: longest in batch)")
     ap.add_argument("--save-every", type=int, default=0)
@@ -188,19 +211,44 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from .parallel.distributed import launched_ranks
+
     args = build_parser().parse_args(argv)
-    if args.mesh_model != 1:
-        raise NotImplementedError(
-            "--mesh-model other than 1 (the DP x TP mesh, parallel/) is not "
-            "ported to PyTorch yet (ROADMAP.md, Queue 1 item 5)")
+    if args.mesh_model == 1 and launched_ranks() == 1:
+        return _train(args)
+    from .parallel.mesh import AXIS_DATA, axis_size, launch_mesh
+
+    joined = dist.is_initialized()
+    mesh = launch_mesh(args.mesh_model, "--mesh-model")
+    try:
+        n_data = axis_size(mesh, AXIS_DATA)
+        if args.batch_size % n_data:
+            raise SystemExit(f"--batch-size {args.batch_size} must divide "
+                             f"over the {n_data} data ranks")
+        return _train(args, mesh)
+    finally:
+        if not joined:
+            dist.destroy_process_group()
+
+
+def _train(args, mesh=None) -> int:
     device = _device(args.device)
 
     from .eval.harness import discover
-    from .models.whisper import WhisperModel, load_model
-    from .params import params_tree
+    from .models.whisper import load_model, model_from_params
+    from .parallel.distributed import is_main_process
+    from .parallel.sharding import gather_named, gather_params
     from .tokenizer import get_tokenizer
     from .train import TrainConfig, make_eval_step, make_train_step
     from .utils.checkpoint import save_params, save_train_state
+
+    main_rank = is_main_process()
+    # the one-card run makes the calls it made before the mesh
+    on_mesh = {} if mesh is None else {"mesh": mesh}
+    # rank 0 alone logs
+    print = builtins.print if main_rank else (lambda *a, **k: None)  # noqa: A001
 
     utts = discover(args.corpus)
     if not utts:
@@ -223,7 +271,8 @@ def main(argv=None) -> int:
     print(f"{len(utts)} train / {len(eval_utts)} held-out utterances; "
           f"device: {device}")
 
-    model = load_model(args.model, checkpoint=args.checkpoint, device=device)
+    model = load_model(args.model, checkpoint=args.checkpoint, device=device,
+                       **on_mesh)
     cfg = model.cfg
     tokenizer = get_tokenizer(cfg, language="en" if cfg.multilingual else None)
 
@@ -234,7 +283,8 @@ def main(argv=None) -> int:
         lora_kw = {"rank": args.lora_rank, "alpha": args.lora_alpha}
         if args.lora_targets:
             lora_kw["targets"] = args.lora_targets
-        model = WhisperModel(cfg, add_lora(params_tree(model), **lora_kw))
+        model = model_from_params(cfg, add_lora(gather_params(model), **lora_kw),
+                                  mesh=mesh)
         trainable = trainable or "lora_"
         print(f"LoRA rank {args.lora_rank}: "
               f"{count_lora_params(model)/1e6:.2f}M trainable adapter params")
@@ -249,7 +299,7 @@ def main(argv=None) -> int:
             total_steps=(total_updates
                          if args.schedule != "constant" else None),
             accum_steps=args.accum_steps,
-            trainable=trainable, flash=args.flash))
+            trainable=trainable, flash=args.flash), **on_mesh)
     model, opt_state = init_fn(model)
 
     start_step = 0
@@ -262,14 +312,21 @@ def main(argv=None) -> int:
 
     eval_fn = None
     if args.eval_every:
-        eval_fn = make_eval_step(cfg, TrainConfig(flash=args.flash))
+        eval_fn = make_eval_step(cfg, TrainConfig(flash=args.flash), **on_mesh)
         held_out = eval_batches(eval_utts, args.batch_size, cfg, tokenizer,
                                 max_len=args.max_len, device=device)
 
     def _save_state(step):
         if not args.save_state:
             return
-        save_train_state(args.save_state, model, opt_state=opt_state, step=step)
+        if mesh is None:
+            save_train_state(args.save_state, model, opt_state=opt_state, step=step)
+        else:
+            tree = gather_params(model)
+            full_opt = _map_opt_state(gather_named, model, opt_state)
+            if main_rank:
+                save_train_state(args.save_state, tree, opt_state=full_opt,
+                                 step=step)
         print(f"saved train state {args.save_state} (step {step})", flush=True)
 
     it = data_iterator(utts, args.batch_size, cfg, tokenizer, seed=args.seed,
@@ -291,21 +348,24 @@ def main(argv=None) -> int:
                   f"({len(eval_utts)} utts)", flush=True)
         if args.save_every and step % args.save_every == 0:
             path = f"{args.output}-{step}.safetensors"
-            save_params(model, path, model_name=cfg.name)
+            saved = model if mesh is None else gather_params(model)
+            if main_rank:
+                save_params(saved, path, model_name=cfg.name)
             print(f"saved {path}", flush=True)
             _save_state(step)
             last_state_saved = step
     if args.steps > last_state_saved:
         _save_state(args.steps)
 
-    final = params_tree(model)
+    final = gather_params(model)
     if args.lora_rank > 0 and not args.no_merge_lora:
         from .lora import merge_lora
 
         final = merge_lora(final)
         print("merged LoRA adapters into base weights")
     path = f"{args.output}-final.safetensors"
-    save_params(final, path, model_name=cfg.name)
+    if main_rank:
+        save_params(final, path, model_name=cfg.name)
     print(f"saved {path}")
     return 0
 

@@ -26,6 +26,12 @@ cross-attention probabilities through `visit`): its causal self-attention
 then runs the flash kernel's causal mode on the card (JAX's
 `decoder_block_full` never passes flash; the kernel's own docstring names
 teacher forcing as the causal mode's use). The decode loops never set it.
+
+Under a model axis (`parallel/`) each rank holds n_text_head / n_model
+heads (`TextDecoder.n_head`): the caches and cross K/V are the rank's
+heads (`parallel.sharding.KV_PSPEC`), and K3 / K6 run on
+(B, heads of the rank, 64, S). The tied-embedding logits stay replicated,
+as JAX keeps the table whole.
 """
 
 from __future__ import annotations
@@ -81,47 +87,58 @@ class QuantCrossKV(NamedTuple):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, p: Mapping[str, Any], n_head: int):
+    def __init__(self, p: Mapping[str, Any], n_head: int, axis=None):
         super().__init__()
-        self.attn = Attention(p["attn"], n_head)
+        self.attn = Attention(p["attn"], n_head, axis)
         self.attn_ln = LayerNorm(p["attn_ln"])
-        self.cross_attn = Attention(p["cross_attn"], n_head)
+        self.cross_attn = Attention(p["cross_attn"], n_head, axis)
         self.cross_attn_ln = LayerNorm(p["cross_attn_ln"])
-        self.mlp = MLP(p["mlp"])
+        self.mlp = MLP(p["mlp"], axis)
         self.mlp_ln = LayerNorm(p["mlp_ln"])
 
 
 class TextDecoder(nn.Module):
-    """Decoder weights: tied token embedding, learned positions, blocks, ln."""
+    """Decoder weights: tied token embedding, learned positions, blocks, ln.
+    `axis`: the model axis of a mesh (`parallel.mesh.ModelAxis`) or None;
+    `n_head` is this rank's heads per layer, the caches' head count."""
 
-    def __init__(self, cfg: WhisperConfig, p: Mapping[str, Any]):
+    def __init__(self, cfg: WhisperConfig, p: Mapping[str, Any], axis=None):
         super().__init__()
         self.cfg = cfg
+        self.axis = axis
+        self.n_head = (cfg.n_text_head if axis is None
+                       else cfg.n_text_head // axis.size)
         self.token_embedding = frozen(p["token_embedding"])
         self.positional_embedding = frozen(p["positional_embedding"])
         self.blocks = nn.ModuleList(
-            DecoderBlock(layer_slice(p["blocks"], l), cfg.n_text_head)
+            DecoderBlock(layer_slice(p["blocks"], l), cfg.n_text_head, axis)
             for l in range(cfg.n_text_layer))
         self.ln = LayerNorm(p["ln"])
 
 
-def _cache_shape(cfg: WhisperConfig, batch: int, ctx: Optional[int]) -> tuple:
-    """ctx: cache length, at most (and by default) the 448 text context."""
+def _cache_shape(cfg: WhisperConfig, batch: int, ctx: Optional[int],
+                 n_head: Optional[int] = None) -> tuple:
+    """ctx: cache length, at most (and by default) the 448 text context;
+    n_head: the decoder's heads on this rank (`TextDecoder.n_head`; all of
+    cfg's by default)."""
     ctx = cfg.n_text_ctx if ctx is None else min(ctx, cfg.n_text_ctx)
-    return (cfg.n_text_layer, batch, cfg.n_text_head, cfg.text_head_dim, ctx)
+    return (cfg.n_text_layer, batch, n_head or cfg.n_text_head,
+            cfg.text_head_dim, ctx)
 
 
 def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
-                  device: torch.device, ctx: Optional[int] = None) -> KVCache:
-    shape = _cache_shape(cfg, batch, ctx)
+                  device: torch.device, ctx: Optional[int] = None,
+                  n_head: Optional[int] = None) -> KVCache:
+    shape = _cache_shape(cfg, batch, ctx, n_head)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_kv_cache_int8(cfg: WhisperConfig, batch: int, device: torch.device,
-                       ctx: Optional[int] = None) -> QuantKVCache:
+                       ctx: Optional[int] = None,
+                       n_head: Optional[int] = None) -> QuantKVCache:
     """int8 variant of init_kv_cache (DecodingOptions.cache_dtype="int8")."""
-    shape = _cache_shape(cfg, batch, ctx)
+    shape = _cache_shape(cfg, batch, ctx, n_head)
     sshape = shape[:3] + (1, shape[-1])
     return QuantKVCache(
         torch.zeros(shape, dtype=torch.int8, device=device),
@@ -132,12 +149,13 @@ def init_kv_cache_int8(cfg: WhisperConfig, batch: int, device: torch.device,
 
 def init_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
                device: torch.device, ctx: Optional[int] = None,
-               cache_dtype: str = "bf16") -> Union[KVCache, QuantKVCache]:
+               cache_dtype: str = "bf16",
+               n_head: Optional[int] = None) -> Union[KVCache, QuantKVCache]:
     """The decode loops' cache: int8 for cache_dtype="int8", else `dtype`
-    (the model's activation dtype, as in JAX)."""
+    (the model's activation dtype, as in JAX); n_head as `_cache_shape`."""
     if cache_dtype == "int8":
-        return init_kv_cache_int8(cfg, batch, device, ctx=ctx)
-    return init_kv_cache(cfg, batch, dtype, device, ctx=ctx)
+        return init_kv_cache_int8(cfg, batch, device, ctx=ctx, n_head=n_head)
+    return init_kv_cache(cfg, batch, dtype, device, ctx=ctx, n_head=n_head)
 
 
 def use_self_kernel(cache: Union[KVCache, QuantKVCache]) -> bool:

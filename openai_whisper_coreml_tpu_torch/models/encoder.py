@@ -2,7 +2,11 @@
 `models/encoder.py`). The 1500-position self-attention of every block runs
 the Hopper flash kernel on the card (`layers.self_attention`); training
 may ask for the plain attention instead (`flash=False`, JAX's default) and
-for rematerialised blocks (`remat=True`, JAX's `jax.checkpoint`)."""
+for rematerialised blocks (`remat=True`, JAX's `jax.checkpoint`).
+
+Under a model axis (`parallel/`) each conv holds its output channels'
+slice and gathers its output to full channels before the next op, and
+each block runs K1 on the rank's n_audio_head / n_model heads."""
 
 from __future__ import annotations
 
@@ -14,31 +18,38 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
-from .layers import (MLP, Attention, LayerNorm, frozen, gelu, layer_norm,
-                     layer_slice, self_attention, sinusoids)
+from .layers import (MLP, Attention, LayerNorm, copy_to_model, frozen,
+                     gather_model, gelu, layer_norm, layer_slice,
+                     self_attention, sinusoids)
 
 
 class Conv1d(nn.Module):
     """k=3 'same' conv; the tree's (kernel, C_in, C_out) weight is stored in
     PyTorch's (C_out, C_in, kernel) layout."""
 
-    def __init__(self, p: Mapping[str, torch.Tensor], stride: int):
+    def __init__(self, p: Mapping[str, torch.Tensor], stride: int, axis=None):
         super().__init__()
         self.stride = stride
+        self.axis = axis  # a model axis: w and b hold this rank's C_out slice
         self.w = frozen(p["w"].permute(2, 1, 0).contiguous())
         self.b = frozen(p["b"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis is not None:
+            x = copy_to_model(x, self.axis)
         y = F.conv1d(x, self.w.to(x.dtype), stride=self.stride, padding=1)
-        return (y.float() + self.b.float()[None, :, None]).to(x.dtype)
+        y = (y.float() + self.b.float()[None, :, None]).to(x.dtype)
+        if self.axis is not None:
+            y = gather_model(y, 1, self.axis)
+        return y
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, p: Mapping[str, Any], n_head: int):
+    def __init__(self, p: Mapping[str, Any], n_head: int, axis=None):
         super().__init__()
-        self.attn = Attention(p["attn"], n_head)
+        self.attn = Attention(p["attn"], n_head, axis)
         self.attn_ln = LayerNorm(p["attn_ln"])
-        self.mlp = MLP(p["mlp"])
+        self.mlp = MLP(p["mlp"], axis)
         self.mlp_ln = LayerNorm(p["mlp_ln"])
 
     def forward(self, x: torch.Tensor, flash: bool = True) -> torch.Tensor:
@@ -48,13 +59,13 @@ class EncoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, cfg: WhisperConfig, p: Mapping[str, Any]):
+    def __init__(self, cfg: WhisperConfig, p: Mapping[str, Any], axis=None):
         super().__init__()
         self.cfg = cfg
-        self.conv1 = Conv1d(p["conv1"], stride=1)
-        self.conv2 = Conv1d(p["conv2"], stride=2)
+        self.conv1 = Conv1d(p["conv1"], stride=1, axis=axis)
+        self.conv2 = Conv1d(p["conv2"], stride=2, axis=axis)
         self.blocks = nn.ModuleList(
-            EncoderBlock(layer_slice(p["blocks"], l), cfg.n_audio_head)
+            EncoderBlock(layer_slice(p["blocks"], l), cfg.n_audio_head, axis)
             for l in range(cfg.n_audio_layer))
         self.ln_post = LayerNorm(p["ln_post"])
 

@@ -18,6 +18,17 @@ with the JAX package's numerics:
 Weights are created frozen (Parameters that autograd ignores, so serving
 builds no graph); training asks for the leaves it trains, and
 `train.make_train_step`'s init turns `requires_grad` on for those only.
+
+Under a (data, model) mesh (`parallel/`) the attention and MLP linears
+are `ParallelLinear`s over this rank's shard: column-parallel (q, k, v,
+fc1: local output columns, so local heads) or row-parallel (out, fc2:
+local input rows; each rank's partial product is computed in fp32 from
+upcast operands, all-reduced over the model group unrounded and the bias
+added after the sum, as GSPMD runs JAX's `dot(x, w) + b`). Training
+goes through Megatron's pair of communication ops, written by hand as
+autograd Functions (`copy_to_model`, `reduce_from_model`); at inference
+they are a no-op and a plain in-place all-reduce. Without a mesh every
+module is the plain `Linear`: no collective, no extra op per call.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -67,6 +79,163 @@ class Linear(nn.Module):
         return linear(x, self)
 
 
+# -- tensor-parallel communication ---------------------------------------------
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group, in fp32 (gloo's dtypes; exact for the zero-filled
+    gathers, and the partial products are fp32 already). In place for an
+    fp32 tensor."""
+    if x.dtype == torch.float32:
+        dist.all_reduce(x, group=group)
+        return x
+    y = x.float()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient backward
+    (the input of a column-parallel product, whose input gradient is a
+    partial sum on each rank)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.axis.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward (the output of a
+    row-parallel product; the loss downstream is one replicated term, so
+    the gradient must not be summed again, as
+    `torch.distributed.nn.functional.all_reduce` would)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x.clone(), axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along `dim` forward (`gather_model`), this rank's slice of
+    the gradient backward (the gradient of a replicated activation is
+    whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.width = dim, axis, x.shape[dim]
+        return gather_model(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.axis.rank * ctx.width
+        return g.narrow(ctx.dim, lo, ctx.width).contiguous(), None, None
+
+
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    return _CopyToModel.apply(x, axis) if _tracks_grad(x) else x
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum of the model group's partial products (fp32)."""
+    if _tracks_grad(x):
+        return _ReduceFromModel.apply(x, axis)
+    return _all_reduce(x, axis.group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, rank: int, size: int) -> torch.Tensor:
+    """Concatenate the group's equal slices along `dim`, in rank order: a
+    zero-filled full buffer that each rank writes its slice into, summed
+    over the group (gloo has no all_gather for CUDA tensors; x + 0 = x, so
+    the sum is exact)."""
+    shape = list(x.shape)
+    width = shape[dim]
+    shape[dim] = width * size
+    full = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    full.narrow(dim, rank * width, width).copy_(x)
+    return _all_reduce(full, group).to(x.dtype)
+
+
+def gather_model(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The model group's shards of one tensor, whole (differentiable)."""
+    if _tracks_grad(x):
+        return _GatherFromModel.apply(x, dim, axis)
+    return gather_dim(x, dim, axis.group, axis.rank, axis.size)
+
+
+class ParallelLinear(Linear):
+    """A `Linear` over this rank's shard of the weight.
+
+    "col": the output columns [r*n, (r+1)*n) of w (and of the bias and the
+    int8 scale); the input is replicated. "row": the input rows of w; the
+    input is this rank's slice of the features, the products are taken in
+    fp32 (`_partial_product`) and summed over the model group before the
+    scale and the bias. LoRA adapters stay whole (JAX replicates them): a
+    column-parallel linear uses its columns of `lora_b`, a row-parallel one
+    its rows of `lora_a`, whose partial product is summed in fp32 before
+    the cast and `@ lora_b` (in fp32 too, as JAX's).
+    `partial_grads` names the leaves whose gradient on one rank is a part
+    of the whole and must be summed over the model group (train.py)."""
+
+    def __init__(self, p: Mapping[str, torch.Tensor], axis, mode: str):
+        super().__init__(p)
+        if mode not in ("col", "row"):
+            raise ValueError(f"unknown parallel mode {mode!r}")
+        self.axis, self.mode = axis, mode
+        self.partial_grads = (("lora_a", "lora_b") if mode == "col"
+                              else ("lora_a",))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.w if self.w_q is None else self.w_q
+        if self.mode == "col":
+            x = copy_to_model(x, self.axis)
+            y = (x @ w.to(x.dtype)).float()
+        else:
+            y = reduce_from_model(_partial_product(x, w), self.axis)
+        if self.w_q is not None:
+            y = y * self.scale
+        if self.lora_a is not None:
+            a, b = self.lora_a, self.lora_b
+            if self.mode == "col":
+                n = w.shape[-1]
+                b = b[:, self.axis.rank * n:(self.axis.rank + 1) * n]
+                xa = (x @ a.to(x.dtype)).float()
+                y = y + (xa.to(x.dtype) @ b.to(x.dtype)).float()
+            else:
+                n = w.shape[0]
+                a = a[self.axis.rank * n:(self.axis.rank + 1) * n]
+                xa = reduce_from_model(_partial_product(x, a), self.axis)
+                y = y + _partial_product(xa.to(x.dtype), b)
+        if self.b is not None:
+            y = y + self.b.float()
+        return y.to(x.dtype)
+
+
+def _partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel linear's products in fp32, JAX's
+    `preferred_element_type=float32`: each rank's partial, which GSPMD
+    sums unrounded, and LoRA's up-projection of the summed bottleneck. The
+    operands are upcast (a bf16 x bf16 product is exact in fp32), so no
+    bf16 rounding comes before the one cast at the end."""
+    return x.float() @ w.float()
+
+
+def make_linear(p: Mapping[str, torch.Tensor], axis, mode: str) -> Linear:
+    """The plain `Linear` without a mesh, else a `ParallelLinear`."""
+    return Linear(p) if axis is None else ParallelLinear(p, axis, mode)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, p: Mapping[str, torch.Tensor]):
         super().__init__()
@@ -78,25 +247,26 @@ class LayerNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, p: Mapping[str, Any]):
+    def __init__(self, p: Mapping[str, Any], axis=None):
         super().__init__()
-        self.fc1 = Linear(p["fc1"])
-        self.fc2 = Linear(p["fc2"])
+        self.fc1 = make_linear(p["fc1"], axis, "col")
+        self.fc2 = make_linear(p["fc2"], axis, "row")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    """q/k/v/out projections of one attention sublayer (k has no bias)."""
+    """q/k/v/out projections of one attention sublayer (k has no bias).
+    Under a model axis of size m, `n_head` is this rank's n_head / m heads."""
 
-    def __init__(self, p: Mapping[str, Any], n_head: int):
+    def __init__(self, p: Mapping[str, Any], n_head: int, axis=None):
         super().__init__()
-        self.n_head = n_head
-        self.q = Linear(p["q"])
-        self.k = Linear(p["k"])
-        self.v = Linear(p["v"])
-        self.out = Linear(p["out"])
+        self.n_head = n_head if axis is None else n_head // axis.size
+        self.q = make_linear(p["q"], axis, "col")
+        self.k = make_linear(p["k"], axis, "col")
+        self.v = make_linear(p["v"], axis, "col")
+        self.out = make_linear(p["out"], axis, "row")
 
 
 def layer_norm(x: torch.Tensor, p: LayerNorm, eps: float = 1e-5) -> torch.Tensor:

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -249,16 +249,19 @@ def jax_path(name: str) -> str:
     return "/".join(parts)
 
 
-def params_tree(model: torch.nn.Module) -> Params:
+def params_tree(model: torch.nn.Module,
+                tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Params:
     """The model's parameters as a JAX-layout tree of tensors on the
     model's device and in its dtypes: layers restacked (copies), conv
     weights back to (kernel, C_in, C_out); other leaves are the parameters'
-    detached tensors."""
+    detached tensors. `tensors` (parameter name -> tensor) stands in for
+    the parameters' values (`parallel.sharding.gather_params`)."""
     from .utils.checkpoint import unflatten_params
 
     groups: Dict[str, list] = {}
     for name, p in model.named_parameters():
-        groups.setdefault(jax_path(name), []).append(p.detach())
+        t = p.detach() if tensors is None else tensors[name]
+        groups.setdefault(jax_path(name), []).append(t)
     flat = {}
     for path, ts in groups.items():
         t = torch.stack(ts) if "/blocks/" in path else ts[0]

@@ -56,8 +56,9 @@ def quantize_params(params: Params, *, min_size: int = MIN_QUANT_SIZE) -> Params
             if (name not in non_linear and w.ndim in (2, 3)
                     and w.numel() >= min_size):
                 out = quantize_linear(w)
-                if "b" in node:
-                    out["b"] = node["b"]
+                for extra in ("b", "lora_a", "lora_b"):
+                    if extra in node:  # adapters ride along in float
+                        out[extra] = node[extra]
                 return out
             return node
         return {k: walk(v, k) for k, v in node.items()}

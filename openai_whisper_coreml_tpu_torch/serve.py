@@ -60,11 +60,12 @@ def spec_governor(model, options: "ServeOptions") -> spec_mod.SpecGovernor:
     `model.draft` drops it, since a new pairing is new evidence. The
     threshold is fixed at creation from the first call's options: an
     explicit `spec_fallback_threshold` is pinned, else the H100 prior at
-    this batch calibrates itself from walled decodes."""
+    this batch calibrates itself from walled decodes (not under a mesh:
+    walls differ between ranks, whose branches must agree)."""
     gov = getattr(model, "_spec_governor", None)
     if gov is None:
         thr = options.spec_fallback_threshold
-        pinned = thr is not None
+        pinned = thr is not None or getattr(model, "mesh", None) is not None
         if thr is None:
             thr = spec_mod.break_even_tokens_per_iter(
                 options.spec_k, batch=options.batch_size)
@@ -180,8 +181,21 @@ def transcribe_batch(
 ) -> List[Dict[str, Any]]:
     """Transcribe many independent audio arrays or files at once; one
     openai-schema result dict ({"text", "segments", "language",
-    "duration"}) per input."""
+    "duration"}) per input.
+
+    Under a mesh (`model.mesh`) the requests are split over the data
+    groups; each model group runs the scheduler in lockstep on its share,
+    and every rank returns all the results in request order."""
     from .audio import load_audio
+    from .parallel.mesh import data_ways, refuse_on_mesh, split_over_data
+
+    mesh = getattr(model, "mesh", None)
+    if options.word_timestamps:
+        refuse_on_mesh(model, "word_timestamps=True")
+    if data_ways(mesh) > 1:
+        audios = list(audios)
+        return split_over_data(mesh, len(audios), lambda lo, hi: transcribe_batch(
+            model, audios[lo:hi], options))
 
     arrays = [np.asarray(load_audio(a) if isinstance(a, str) else a, np.float32)
               for a in audios]

@@ -82,7 +82,7 @@ def prefill_from_cross(
     r = initial_tokens.shape[0]
     dtype = decoder.token_embedding.dtype
     cache = dec_mod.init_cache(cfg, r, dtype, dev, ctx=cache_len,
-                               cache_dtype=cache_dtype)
+                               cache_dtype=cache_dtype, n_head=decoder.n_head)
     tokens = torch.full((r, prompt_len + sample_len), cfg.eot_token,
                         dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = initial_tokens
@@ -346,7 +346,8 @@ class ContinuousBatcher:
             no_speech=torch.zeros(bs, device=dev),
             pad=torch.zeros(bs, dtype=torch.long, device=dev),
             cache=dec_mod.init_cache(cfg, bs, dtype, dev, ctx=self.cache_len,
-                                     cache_dtype=self.options.cache_dtype),
+                                     cache_dtype=self.options.cache_dtype,
+                                     n_head=self.model.decoder.n_head),
             cross_kv=cross,
         )
 

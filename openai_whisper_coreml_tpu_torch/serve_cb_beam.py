@@ -72,7 +72,8 @@ def prefill_beam_from_cross(
     eot = cfg.eot_token
     total_len = prompt_len + sample_len
     cache = dec_mod.init_cache(cfg, gk, decoder.token_embedding.dtype, dev,
-                               ctx=cache_len, cache_dtype=cache_dtype)
+                               ctx=cache_len, cache_dtype=cache_dtype,
+                               n_head=decoder.n_head)
     tokens = torch.full((gk, total_len), eot, dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = initial_tokens
     prefill_logits, cache = dec_mod.decode_step(
@@ -205,7 +206,8 @@ class BeamContinuousBatcher(ContinuousBatcher):
             fin_lens=torch.zeros((g, c), dtype=torch.long, device=dev),
             cache=dec_mod.init_cache(cfg, gk, self.model.decoder.token_embedding.dtype,
                                      dev, ctx=self.cache_len,
-                                     cache_dtype=self.options.cache_dtype),
+                                     cache_dtype=self.options.cache_dtype,
+                                     n_head=self.model.decoder.n_head),
             cross_kv=cross,
         )
 

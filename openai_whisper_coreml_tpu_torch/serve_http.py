@@ -36,9 +36,10 @@ launches under a lock. With a paired draft (`--draft-model`, or
 `model.draft` in-process) batches decode speculatively under the model's
 acceptance governor and /stream ticks under one governor per stream;
 /metrics then carries the speculative counters and the governor's gauges,
-each batch's read as differences of `speculative.TOTALS`. Tensor
-parallelism is not ported: `--tensor-parallel` above 1 raises
-NotImplementedError.
+each batch's read as differences of `speculative.TOTALS`. The server
+does not run on a mesh yet (the batch functions do, `parallel/`): it
+needs a front end on rank 0 that broadcasts each batch to the other
+ranks, so `--tensor-parallel` above 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -89,6 +90,9 @@ class WhisperHTTPServer:
         (with the server's default options), so the first real request
         finds the kernels built and the card's libraries loaded; /readyz
         flips to 200 when done."""
+        from .parallel.mesh import refuse_on_mesh
+
+        refuse_on_mesh(model, "WhisperHTTPServer")
         self.model = model
         self.default_options = dict(default_options or {})
         self.batch_size = batch_size
@@ -738,7 +742,7 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8090)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="shard over N cards (not ported yet; 1 only)")
+                    help="shard over N cards (not in the server yet; 1 only)")
     ap.add_argument("--quantize", choices=("int8",), default=None,
                     help="weights-only int8 serving")
     ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
@@ -765,8 +769,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.tensor_parallel > 1:
         raise NotImplementedError(
-            "--tensor-parallel > 1 (parallel/) is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1)")
+            "--tensor-parallel > 1 in the HTTP server (parallel/) is not "
+            "ported yet: it needs a front end on rank 0 that broadcasts each "
+            "batch to the other ranks (ROADMAP.md, Queue 1)")
 
     from . import load_model
 

@@ -83,6 +83,7 @@ def spec_decode_core(
     sampled: bool = False,
     temperature: float = 0.0,
     seed: int = 0,
+    row0: int = 0,  # the batch's first row in the whole batch (the noise's row)
 ) -> Tuple[torch.Tensor, ...]:
     """Speculative decode. Returns (tokens (B, P+sample_len), sum_lp,
     n_sampled, no_speech_prob, n_iters (B,), n_drafted (B,)).
@@ -107,9 +108,9 @@ def spec_decode_core(
     cross_t = dec_mod.precompute_cross(decoder, audio_features, kv_dtype)
     cross_d = dec_mod.precompute_cross(decoder_d, audio_features_d, kv_dtype)
     cache_t = dec_mod.init_kv_cache(cfg, b, audio_features.dtype, dev,
-                                    ctx=cache_len)
+                                    ctx=cache_len, n_head=decoder.n_head)
     cache_d = dec_mod.init_kv_cache(cfg_d, b, audio_features_d.dtype, dev,
-                                    ctx=cache_len)
+                                    ctx=cache_len, n_head=decoder_d.n_head)
     self_kernel_d = dec_mod.use_self_kernel(cache_d)
     pad_len = torch.as_tensor(pad_len, device=dev)
 
@@ -132,7 +133,7 @@ def spec_decode_core(
             use_timestamps, ts, max_initial_ts_index)
 
     def draw(scaled_or_res, pos, tag=None):
-        noise = gumbel_noise(seed, rows, pos, cfg.n_vocab, tag)
+        noise = gumbel_noise(seed, rows + row0, pos, cfg.n_vocab, tag)
         return (scaled_or_res + noise).argmax(dim=-1)
 
     def pick(x, idx):
@@ -214,7 +215,7 @@ def spec_decode_core(
             if sampled:
                 p_j = torch.softmax(filt_j / t_div, dim=-1)
                 q_j = q_list[j]
-                u = uniform_noise(seed, rows, pos + j + 1, tag=2)
+                u = uniform_noise(seed, rows + row0, pos + j + 1, tag=2)
                 # u*q < p  <=>  u < p/q (q(d_j) > 0: d_j was drawn from q_j)
                 match = accepting & (u * pick(q_j, d_j) < pick(p_j, d_j))
                 rej = accepting & ~match

@@ -106,6 +106,9 @@ class StreamingTranscriber:
         proposals per verify step), under this stream's acceptance governor:
         content the draft cannot predict would otherwise pay the
         below-break-even cost on every tick."""
+        from .parallel.mesh import refuse_on_mesh
+
+        refuse_on_mesh(model, "StreamingTranscriber")
         if agreement < 1:
             raise ValueError("agreement must be >= 1")
         self.model = model
@@ -317,6 +320,9 @@ class MultiStreamTranscriber:
         """draft_model: speculative decoding for the batched tick decodes,
         under one tier-level acceptance governor (the batch mixes streams,
         so its evidence is the tier's)."""
+        from .parallel.mesh import refuse_on_mesh
+
+        refuse_on_mesh(model, "MultiStreamTranscriber")
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         self.model = model

@@ -20,8 +20,17 @@ optimizer, written to optax's arithmetic rather than to
     gradient, no moments, no weight decay and no part in the clip norm.
     int8 leaves are never trained.
 
-Updates are applied in place to the model's parameters. The DP x TP mesh
-of the JAX package is not ported (ROADMAP.md, Queue 1 item 5).
+Updates are applied in place to the model's parameters.
+
+Under a (data, model) mesh (`make_train_step(..., mesh=)`, one process per
+rank, the model built on the same mesh) every rank is given the global
+batch and trains on its data rank's rows; the loss is one token mean over
+the global batch (the masked-token count is summed over the data group,
+as JAX's `train.py` divides by the global count), parameter gradients are
+summed over the data group, and the clip norm sums the squares of sharded
+leaves over the model group and counts replicated leaves once. AdamW and
+the accumulation window act on each rank's shards. `parallel.gather_params`
+gives the full tree (for `save_params`).
 """
 
 from __future__ import annotations
@@ -150,12 +159,16 @@ class Optimizer:
     mean} with accumulation. Only trainable names have entries.
     """
 
-    def __init__(self, tc: TrainConfig, labels: Mapping[str, bool]):
+    def __init__(self, tc: TrainConfig, labels: Mapping[str, bool],
+                 sharded: Optional[set] = None, model_group=None):
+        """sharded / model_group: under a mesh, the names of the leaves cut
+        over the model group and that group, for the clip norm."""
         if tc.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
         self.tc = tc
         self.names = [n for n, train in labels.items() if train]
         self.lr = learning_rate_schedule(tc)
+        self.sharded, self.model_group = sharded, model_group
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         def zeros():
@@ -191,9 +204,19 @@ class Optimizer:
                 acc.zero_()
         return True
 
+    def _global_norm(self, grads) -> torch.Tensor:
+        if self.model_group is None:
+            return torch.sqrt(sum((grads[n].float() ** 2).sum() for n in self.names))
+        sq = {s: sum(((grads[n].float() ** 2).sum() for n in self.names
+                      if (n in self.sharded) == s),
+                     torch.zeros((), device=grads[self.names[0]].device))
+              for s in (True, False)}
+        torch.distributed.all_reduce(sq[True], group=self.model_group)
+        return torch.sqrt(sq[True] + sq[False])
+
     def _adamw(self, grads, state, params) -> None:
         tc = self.tc
-        norm = torch.sqrt(sum((grads[n].float() ** 2).sum() for n in self.names))
+        norm = self._global_norm(grads)
         clip = not bool(norm < tc.max_grad_norm)
         count = state["count"] + 1
         bc1 = np.float32(1) - np.float32(tc.b1) ** np.float32(count)
@@ -214,15 +237,34 @@ class Optimizer:
 
 
 def make_optimizer(tc: TrainConfig, model: torch.nn.Module) -> Optimizer:
-    return Optimizer(tc, trainable_labels(model, tc.trainable))
+    labels = trainable_labels(model, tc.trainable)
+    axis = model.decoder.axis
+    if axis is None:
+        return Optimizer(tc, labels)
+    from .parallel.sharding import module_shard_dims
+
+    sharded = {n for n, d in module_shard_dims(model).items() if d is not None}
+    return Optimizer(tc, labels, sharded=sharded, model_group=axis.group)
+
+
+def _data_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A detached copy of x summed over the data group."""
+    x = x.detach().clone()
+    torch.distributed.all_reduce(x, group=group)
+    return x
 
 
 def loss_fn(model, mel: torch.Tensor, tokens: torch.Tensor,
             loss_mask: torch.Tensor, *, remat: bool = True,
-            flash: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            flash: bool = False, data_group=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Teacher-forcing CE: predict tokens[:, 1:] from tokens[:, :-1].
     mel (B, n_mels, frames), tokens (B, T) [sot_sequence, text..., eot]
-    padded, loss_mask (B, T) 1 where the token is a target."""
+    padded, loss_mask (B, T) 1 where the token is a target.
+
+    data_group: this rank holds a data rank's rows; the loss is then this
+    rank's term of the global token mean (its summed NLL over the global
+    token count), and the metrics are the global batch's."""
     feats = model.encoder(mel, remat=remat, flash=flash)
     logits = dec_mod.decoder_forward(model.decoder, tokens[:, :-1],
                                      audio_features=feats, remat=remat,
@@ -231,31 +273,79 @@ def loss_fn(model, mel: torch.Tensor, tokens: torch.Tensor,
     mask = loss_mask[:, 1:].float()
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logprobs, -1, targets[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if data_group is not None:
+        count = _data_sum(count, data_group)
+    denom = torch.clamp(count, min=1.0)
     loss = (nll * mask).sum() / denom
     acc = ((logits.argmax(dim=-1) == targets) * mask).sum() / denom
-    return loss, {"loss": loss.detach(), "accuracy": acc, "tokens": mask.sum()}
+    if data_group is None:
+        return loss, {"loss": loss.detach(), "accuracy": acc, "tokens": count}
+    return loss, {"loss": _data_sum(loss, data_group),
+                  "accuracy": _data_sum(acc, data_group), "tokens": count}
 
 
-def _batch(model, mel, tokens, loss_mask):
+def _batch(model, mel, tokens, loss_mask, mesh=None):
+    """The batch on the model's device; under a mesh, this data rank's rows
+    (the global batch must divide the data axis)."""
     dev = model.device
-    return (torch.as_tensor(mel, device=dev).float(),
-            torch.as_tensor(tokens, device=dev).long(),
-            torch.as_tensor(loss_mask, device=dev).float())
+    out = (torch.as_tensor(mel, device=dev).float(),
+           torch.as_tensor(tokens, device=dev).long(),
+           torch.as_tensor(loss_mask, device=dev).float())
+    if mesh is None:
+        return out
+    from .parallel.distributed import local_batch_slice
+
+    rows = local_batch_slice(out[0].shape[0], mesh)
+    return tuple(t[rows] for t in out)
 
 
-def make_train_step(cfg: WhisperConfig, tc: TrainConfig = TrainConfig()):
+def _check_mesh(model, mesh) -> None:
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("the model must be built on the train step's mesh "
+                         "(load_model(..., mesh=mesh))")
+
+
+def _data_group(mesh):
+    """The data group, or None without a mesh or on a data axis of one
+    rank (whose sums would be collectives that do no work)."""
+    from .parallel.mesh import AXIS_DATA, axis_group, axis_size
+
+    if axis_size(mesh, AXIS_DATA) == 1:
+        return None
+    return axis_group(mesh, AXIS_DATA)
+
+
+def partial_grad_names(model) -> set:
+    """Replicated leaves that a rank uses only in part (LoRA adapters of
+    the parallel linears, `ParallelLinear.partial_grads`): their
+    gradients are summed over the model group."""
+    from .models.layers import ParallelLinear
+
+    return {f"{name}.{leaf}" for name, mod in model.named_modules()
+            if isinstance(mod, ParallelLinear)
+            for leaf in mod.partial_grads if getattr(mod, leaf) is not None}
+
+
+def make_train_step(cfg: WhisperConfig, tc: TrainConfig = TrainConfig(),
+                    mesh=None):
     """(init_fn, step_fn) on the model's device.
 
     init_fn(model) -> (model, opt_state) marks the trainable parameters
     (`requires_grad`) and makes the optimizer state. step_fn(model,
     opt_state, mel, tokens, loss_mask) -> (model, opt_state, metrics)
     updates both in place.
+
+    mesh: the (data, model) DeviceMesh the model was built on (see the
+    module docstring); every rank passes the same global batch.
     """
-    cell: Dict[str, Optimizer] = {}
+    cell: Dict[str, Any] = {}
+    data_group = _data_group(mesh)
 
     def init_fn(model):
+        _check_mesh(model, mesh)
         opt = cell["opt"] = make_optimizer(tc, model)
+        cell["partial"] = partial_grad_names(model)
         for name, p in model.named_parameters():
             p.requires_grad_(name in opt.names)
         return model, opt.init(dict(model.named_parameters()))
@@ -263,23 +353,51 @@ def make_train_step(cfg: WhisperConfig, tc: TrainConfig = TrainConfig()):
     def step_fn(model, opt_state, mel, tokens, loss_mask):
         opt = cell["opt"]
         named = dict(model.named_parameters())
-        loss, metrics = loss_fn(model, *_batch(model, mel, tokens, loss_mask),
-                                remat=tc.remat, flash=tc.flash)
+        loss, metrics = loss_fn(model, *_batch(model, mel, tokens, loss_mask, mesh),
+                                remat=tc.remat, flash=tc.flash,
+                                data_group=data_group)
         grads = torch.autograd.grad(loss, [named[n] for n in opt.names])
+        if data_group is not None or cell["partial"]:
+            grads = _reduce_grads(model, dict(zip(opt.names, grads)),
+                                  cell["partial"], data_group)
+            grads = [grads[n] for n in opt.names]
         opt.update(dict(zip(opt.names, grads)), opt_state, named)
         return model, opt_state, metrics
 
     return init_fn, step_fn
 
 
-def make_eval_step(cfg: WhisperConfig, tc: TrainConfig = TrainConfig()):
+def _reduce_grads(model, grads: Dict[str, torch.Tensor], partial: set,
+                  data_group) -> Dict[str, torch.Tensor]:
+    """Sum every gradient over the data group (each rank's loss is one
+    term of the global mean), where the data axis has more than one rank,
+    and the partly used replicated leaves' over the model group."""
+    from torch.distributed import all_reduce
+
+    out = {}
+    for name, g in grads.items():
+        if data_group is not None or name in partial:
+            g = g.clone()
+        if data_group is not None:
+            all_reduce(g, group=data_group)
+        if name in partial:
+            all_reduce(g, group=model.decoder.axis.group)
+        out[name] = g
+    return out
+
+
+def make_eval_step(cfg: WhisperConfig, tc: TrainConfig = TrainConfig(),
+                   mesh=None):
     """eval_fn(model, mel, tokens, loss_mask) -> {"loss", "accuracy",
-    "tokens"}: forward only, no remat, no gradients."""
+    "tokens"}: forward only, no remat, no gradients; under a mesh, of the
+    global batch."""
+    data_group = _data_group(mesh)
 
     @torch.no_grad()
     def eval_fn(model, mel, tokens, loss_mask):
-        _, metrics = loss_fn(model, *_batch(model, mel, tokens, loss_mask),
-                             remat=False, flash=tc.flash)
+        _check_mesh(model, mesh)
+        _, metrics = loss_fn(model, *_batch(model, mel, tokens, loss_mask, mesh),
+                             remat=False, flash=tc.flash, data_group=data_group)
         return metrics
 
     return eval_fn

@@ -198,14 +198,22 @@ def transcribe(
     and spec_fallback (default True: the draft's acceptance governor).
     """
     cfg = model.cfg
+    mesh = getattr(model, "mesh", None)
+    if word_timestamps:
+        from .parallel.mesh import refuse_on_mesh
+
+        refuse_on_mesh(model, "word_timestamps=True")
     # one acceptance governor per call: long audio the draft cannot predict
-    # would otherwise pay the below-break-even cost on every window
+    # would otherwise pay the below-break-even cost on every window. Under
+    # a mesh it keeps its prior threshold: walls differ between ranks, and
+    # the ranks of a model group must take every branch alike.
     spec_gov = None
     spec_fallback = bool(decode_options.pop("spec_fallback", True))
     if draft_model is not None and spec_fallback:
         spec_gov = spec_mod.SpecGovernor(
             threshold=spec_mod.break_even_tokens_per_iter(
-                int(decode_options.get("spec_k", 4)), batch=1))
+                int(decode_options.get("spec_k", 4)), batch=1),
+            pinned=mesh is not None)
 
     if isinstance(audio, str):
         audio = load_audio(audio)

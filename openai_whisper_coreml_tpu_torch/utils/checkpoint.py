@@ -214,14 +214,16 @@ def _to_cpu(x):
 def save_train_state(path: str, model, opt_state=None,
                      step: Optional[int] = None) -> None:
     """Full training state for an exact resume, in directory `path`: the
-    model's parameter tree (JAX layout, dtypes kept), the optimizer state
+    model's parameter tree (JAX layout, dtypes kept; `model` may be the
+    tree itself, as a sharded run passes its gathered tree), the optimizer state
     (`train.Optimizer`: moments, update count, accumulation window) and the
     completed step count, as one `torch.save` file. Not an orbax
     directory: JAX's train-state directories and these do not interchange."""
     from ..params import params_tree
 
     os.makedirs(path, exist_ok=True)
-    state = {"params": _to_cpu(params_tree(model))}
+    tree = params_tree(model) if isinstance(model, torch.nn.Module) else model
+    state = {"params": _to_cpu(tree)}
     if opt_state is not None:
         state["opt_state"] = _to_cpu(opt_state)
     if step is not None:

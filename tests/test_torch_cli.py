@@ -140,14 +140,15 @@ def test_cli_skips_unreadable_files(models, tmp_path, monkeypatch, capsys):
 ])
 def test_cli_draft_profile_and_tensor_parallel_flags(flags, what, models, wav,
                                                      tmp_path, monkeypatch):
-    """--tensor-parallel > 1 raises naming ROADMAP.md. --profile-dir writes a
+    """--tensor-parallel > 1 outside torchrun raises, saying how to launch
+    it (a launch under torchrun is test_torch_parallel_train's). --profile-dir writes a
     torch.profiler trace of the file's transcription (on the CPU here) and
     leaves the transcript as it is. --draft-model loads the draft through
     load_model with the target's dtype and quantisation and
     --draft-checkpoint, and the file decodes speculatively to the plain
     run's transcript."""
     if what == "parallel":
-        with pytest.raises(NotImplementedError, match=f"(?s){what}.*ROADMAP"):
+        with pytest.raises(RuntimeError, match="(?s)torchrun.*--tensor-parallel 2"):
             tcli.main(["a.wav"] + flags)
         return
     from openai_whisper_coreml_tpu_torch import speculative

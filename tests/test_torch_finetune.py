@@ -127,7 +127,8 @@ def test_data_iterator_skip_replays_the_draws(corpus):
 
 
 def test_flags_the_port_does_not_take(corpus, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # outside torchrun (a launch under it is test_torch_parallel_train's)
+    with pytest.raises(RuntimeError, match="torchrun"):
         _run(corpus, str(tmp_path / "x"), "--mesh-model", "2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

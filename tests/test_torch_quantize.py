@@ -50,6 +50,21 @@ def test_quantize_params_tree_matches_jax(min_size):
             np.testing.assert_allclose(got, leaf, rtol=1e-7)
 
 
+def test_quantize_params_keeps_lora_adapters_as_jax():
+    """Adapters on a quantized linear ride along in float, as in JAX (the
+    port dropped them before)."""
+    from openai_whisper_coreml_tpu.lora import add_lora as jax_add_lora
+
+    cfg = jax_tiny(n_state=128, n_head=2, n_layer=2, n_audio_ctx=64)
+    params = jax.tree.map(np.asarray, jax_add_lora(
+        jax_init(cfg, jax.random.PRNGKey(0)), rank=4, targets=r"mlp/fc1$"))
+    ref = jq.quantize_params(params)["decoder"]["blocks"]["mlp"]["fc1"]
+    ours = tq.quantize_params(tree_from_numpy(params))["decoder"]["blocks"]["mlp"]["fc1"]
+    assert set(ours) == set(ref) == {"w_q", "scale", "b", "lora_a", "lora_b"}
+    for k in ("lora_a", "lora_b"):
+        np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]))
+
+
 def test_int8_linear_matches_jax(rng):
     w = (0.05 * rng.standard_normal((128, 256))).astype(np.float32)
     b = (0.01 * rng.standard_normal(256)).astype(np.float32)
