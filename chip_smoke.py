@@ -128,7 +128,24 @@ Phases (each raises, so the script exits non-zero, on failure):
      35 s WAV at large-v3-turbo int8 (large-v3's widths, a 4-layer decoder:
      the depth cut for time) under `python -m torch.distributed.run
      --standalone --nproc-per-node 2 ... --tensor-parallel 2`, its files
-     written once.
+     written once. Word timestamps at the same fp32 turbo widths on (1, 2)
+     and (2, 1): transcribe of a 35 s clip and transcribe_batch of three
+     requests (16-token windows), every rank's segments and word times
+     equal to the unsharded model's and probabilities within 1e-5, K1's
+     causal mode once per decoder layer of each alignment forward on each
+     rank; the two stream classes at the turbo widths in bf16 (bf16
+     cross-KV and cache) on (1, 2): a StreamingTranscriber over 5 s and a
+     two-stream MultiStreamTranscriber (8-token ticks), every rank's
+     events equal, K4, K1 and K3 counted on each rank; the HTTP server at
+     large-v3-turbo int8 with int8 cross-KV under `python -m
+     torch.distributed.run --standalone --nproc-per-node 2 -m
+     openai_whisper_coreml_tpu_torch.serve_http ... --tensor-parallel 2
+     --warmup --sample-len 8 --batch-size 2`: once /readyz is 200,
+     /transcribe with and
+     without words, the OpenAI route (verbose_json words, json, srt),
+     /detect, one /stream, two concurrent /transcribe requests and
+     /metrics, each answer well-formed; then an interrupt to rank 0 stops
+     the server, rank 1 returns, and the launcher returns 0.
      The walls are no multi-card figure: gloo stages every collective
      through the host, and the ranks take turns on one card;
   7. the decode step's profile: 5 large-v3 B=4 steps at a 224-token horizon
@@ -2273,19 +2290,22 @@ def multipart(fields: dict, data: bytes):
     return body, {"Content-Type": f"multipart/form-data; boundary={bound}"}
 
 
-def server_routes(srv, name, short):
+def server_routes(srv, name, short, temperature=None):
     """The server's other routes on one short WAV: word timestamps on
     /transcribe and as verbose_json words on /v1/audio/transcriptions,
-    the OpenAI route as json and srt, /detect. Returns (the words on
-    /transcribe, the verbose_json answer)."""
-    code, raw = http(srv, "/transcribe?word_timestamps=1", short)
+    the OpenAI route as json and srt, /detect; each request at
+    `temperature` when given (one rung), else the server's ladder. Returns
+    (the words on /transcribe, the verbose_json answer)."""
+    query = "" if temperature is None else f"&temperature={temperature}"
+    form = {} if temperature is None else {"temperature": temperature}
+    code, raw = http(srv, "/transcribe?word_timestamps=1" + query, short)
     if code != 200:
         raise AssertionError(f"{name}: word timestamps answered {code} {raw!r}")
     worded = json.loads(raw)
     n_words = check_words(worded, f"{name} /transcribe words")
     code, raw = http(srv, "/v1/audio/transcriptions", *multipart(
         {"language": "en", "response_format": "verbose_json",
-         "timestamp_granularities[]": "word"}, short))
+         "timestamp_granularities[]": "word", **form}, short))
     verbose = json.loads(raw) if code == 200 else {}
     if code != 200 or verbose.get("words") != [
             w for seg in verbose["segments"] for w in seg["words"]]:
@@ -2296,7 +2316,7 @@ def server_routes(srv, name, short):
     for fmt in ("json", "srt"):
         code, outs[fmt] = http(srv, "/v1/audio/transcriptions",
                                *multipart({"language": "en",
-                                           "response_format": fmt}, short))
+                                           "response_format": fmt, **form}, short))
         if code != 200:
             raise AssertionError(f"{name}: /v1/audio/transcriptions {fmt}: "
                                  f"{code} {outs[fmt][:200]!r}")
@@ -3057,6 +3077,15 @@ PARALLEL_SERVE = dict(scheduler="continuous", batch_size=4, language="en",
                       kv_dtype="int8", sample_len=8, chunk_tokens=8,
                       temperature=(0.0,), no_speech_threshold=None,
                       without_timestamps=True)
+# word timestamps under the mesh (fp32, turbo widths): transcribe of a 35 s
+# clip, then transcribe_batch of three requests (16-token windows, no gates)
+PARALLEL_WORDS = dict(language="en", sample_len=16, kv_dtype="int8",
+                      word_timestamps=True, no_speech_threshold=None,
+                      logprob_threshold=None, compression_ratio_threshold=None)
+PARALLEL_WORDS_SECONDS = (6, 12, 35)
+# the two stream classes under the mesh (bf16, turbo widths, bf16 cache):
+# 8-token tick horizons (16 took 19.4 s on an NVIDIA H100 80GB HBM3 at 700 W)
+PARALLEL_STREAM = dict(language="en", sample_len=8)
 
 
 def free_port() -> int:
@@ -3209,10 +3238,50 @@ def parallel_train_run(case: str, mesh=None):
                     flatten_params(gather_params(model)).items()}
 
 
-def rank_phase(n_data: int, n_model: int, inputs: str, serve: bool, train: bool) -> dict:
+def stream_run(wt, model, data) -> dict:
+    """A StreamingTranscriber over a 5 s clip in 1 s chunks, then a
+    two-stream MultiStreamTranscriber (5 s and 3 s) polled each second:
+    every event as (text, tokens, is_final)."""
+    def events(evs):
+        return [(e.text, list(e.tokens), e.is_final) for e in evs]
+
+    clip = data["stream_clip"]
+    st = wt.StreamingTranscriber(model, **PARALLEL_STREAM)
+    single = []
+    for off in range(0, len(clip), SR):
+        single += events(st.feed(clip[off:off + SR]))
+    single += events(st.finish())
+    audios = [data["multi0"], data["multi1"]]
+    mst = wt.MultiStreamTranscriber(model, n_streams=2, **PARALLEL_STREAM)
+    multi = {0: [], 1: []}
+    for off in range(0, max(len(a) for a in audios), SR):
+        for i, a in enumerate(audios):
+            if off < len(a):
+                mst.feed(i, a[off:off + SR])
+        for i, evs in mst.poll().items():
+            multi[i] += events(evs)
+    for i in multi:
+        multi[i] += events(mst.finish(i))
+    return {"single": single, "multi": [multi[0], multi[1]]}
+
+
+def words_run(wt, model, data) -> dict:
+    """transcribe of the 35 s clip and transcribe_batch of three requests,
+    with word timestamps (PARALLEL_WORDS)."""
+    reqs = [data[f"words_req{i}"] for i in range(len(PARALLEL_WORDS_SECONDS))]
+    return {"transcribe": model.transcribe(data["words_clip"], temperature=0.0,
+                                           **PARALLEL_WORDS),
+            "batch": wt.transcribe_batch(model, reqs, wt.ServeOptions(
+                batch_size=len(reqs), temperature=(0.0,), **PARALLEL_WORDS))}
+
+
+def rank_phase(n_data: int, n_model: int, inputs: str, serve: bool, train: bool,
+               words: bool = False, streams: bool = False) -> dict:
     """One mesh's work on this rank: fp32 parity at large-v3-turbo's widths,
-    then (serve) large-v3 bf16 int8 serving, then (train) the training
-    cases; on rank 0 the one-process training runs too, for the check."""
+    with (words) word timestamps on the same model; then (streams) the two
+    stream classes at the turbo widths in bf16; then (serve) large-v3 bf16
+    int8 serving, then (train) the training cases; on rank 0 the
+    one-process training runs too, for the check."""
     import torch.distributed as dist
 
     import openai_whisper_coreml_tpu_torch as wt
@@ -3236,8 +3305,32 @@ def rank_phase(n_data: int, n_model: int, inputs: str, serve: bool, train: bool)
     out["greedy"] = [r.tokens for r in res]
     out["fp32_calls"] = dict(calls)
     out["fp32_launches"] = read_counts(kernels)
+    if words:
+        # fp32 caches never take K3; K1-causal once per decoder layer of
+        # each alignment forward, on the rank's heads
+        t = time.perf_counter()
+        with main_path(f"parallel words fp32 {tag}", kernels,
+                       idle=PARALLEL_IDLE[1:] + ("sqa_self",)) as calls:
+            out["words"] = words_run(wt, model, data)
+        out["words_s"] = time.perf_counter() - t
+        out["words_calls"] = dict(calls)
+        out["words_launches"] = read_counts(kernels)
     del model
     torch.cuda.empty_cache()
+
+    if streams:
+        # streams decode with a bf16 cross-KV and cache: K4, K1 and K3
+        model = wt.build_model(cfg, dtype=torch.bfloat16, seed=0, device="cuda",
+                               mesh=mesh)
+        t = time.perf_counter()
+        with main_path(f"parallel streams bf16 {tag}", kernels,
+                       idle=PARALLEL_IDLE + ("sqa_int8",)) as calls:
+            out["streams"] = stream_run(wt, model, data)
+        out["streams_s"] = time.perf_counter() - t
+        out["streams_calls"] = dict(calls)
+        out["streams_launches"] = read_counts(kernels)
+        del model
+        torch.cuda.empty_cache()
 
     if serve:
         model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
@@ -3358,16 +3451,25 @@ def parallel_slice(wt, model, kernels) -> dict:
     want = [r.tokens for r in wt.decode(ref, mel, wt.DecodingOptions(
         language="en", sample_len=32, kv_dtype="int8"))]
     clips = [speechy(s, 40 + i) for i, s in enumerate((8, 12, 16, 20, 10, 14))]
+    word_inputs = {"words_clip": speechy(35, 50),
+                   "stream_clip": speechy(5, 53), "multi0": speechy(5, 54),
+                   "multi1": speechy(3, 55),
+                   **{f"words_req{i}": speechy(sec, 51 + i)
+                      for i, sec in enumerate(PARALLEL_WORDS_SECONDS)}}
+    t = time.perf_counter()
+    want_words = words_run(wt, ref, word_inputs)
+    log(f"parallel words fp32 unsharded: {time.perf_counter() - t:.1f} s wall")
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
         np.savez(inputs, mel=mel.cpu().numpy(), tokens=tokens, audio=audio,
-                 **{f"clip{i}": c for i, c in enumerate(clips)})
+                 **{f"clip{i}": c for i, c in enumerate(clips)}, **word_inputs)
         ranks = {}
         for n_data, n_model in ((1, 2), (2, 1), (2, 2)):
             t = time.perf_counter()
             ranks[(n_data, n_model)] = run_ranks(
                 n_data * n_model, rank_phase, n_data, n_model, inputs,
-                (n_data, n_model) == (1, 2), n_data * n_model == 2)
+                (n_data, n_model) == (1, 2), n_data * n_model == 2,
+                n_data * n_model == 2, (n_data, n_model) == (1, 2))
             log(f"parallel {n_data}x{n_model}: {time.perf_counter() - t:.1f} s wall "
                 f"on {card()} (ranks spawned and joined; gloo stages every "
                 f"collective through the host: no multi-card figure)")
@@ -3397,6 +3499,8 @@ def parallel_slice(wt, model, kernels) -> dict:
                 err, summary.get(f"fp32_{mesh[0]}x{mesh[1]}_logits_max_abs", 0.0))
     del ref, feats
     torch.cuda.empty_cache()
+    summary.update(parallel_words_check(ranks, want_words, cfg))
+    summary.update(parallel_streams_check(ranks[(1, 2)], cfg))
 
     # serving on (1, 2) beside the unsharded large-v3 int8 model, and the
     # same weights computed in fp32 (model32) for the rows that part
@@ -3464,9 +3568,188 @@ def parallel_slice(wt, model, kernels) -> dict:
                 raise AssertionError(f"parallel training failed: {mesh} {case}")
 
     summary["cli_s"] = parallel_cli()
+    summary.update(parallel_server())
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"parallel_slice: {summary['phase_s']:.1f} s on {card()}")
     return summary
+
+
+def parallel_words_check(ranks, want, cfg) -> dict:
+    """Every rank's words on (1, 2) and (2, 1) against the unsharded fp32
+    model's: segments' tokens and word times equal, probabilities within
+    1e-5; K1-causal launched once per decoder layer of each alignment
+    forward (`main_path` held each rank to it)."""
+    out = {}
+    for mesh in ((1, 2), (2, 1)):
+        for r, res in enumerate(ranks[mesh]):
+            got = res["words"]
+            pairs = [(got["transcribe"], want["transcribe"])] + list(
+                zip(got["batch"], want["batch"]))
+            equal = [[s["tokens"] for s in a["segments"]]
+                     == [s["tokens"] for s in b["segments"]]
+                     and words_key(a["segments"]) == words_key(b["segments"])
+                     for a, b in pairs]
+            err = max(word_probs_err(a["segments"], b["segments"]) for a, b in pairs)
+            n_words = check_words(got["transcribe"], f"parallel words {mesh} rank {r}")
+            n_words += sum(len(seg.get("words") or []) for a in got["batch"]
+                           for seg in a["segments"])
+            calls, launches = res["words_calls"], res["words_launches"]
+            log(f"parallel words fp32 {mesh} rank {r}: transcribe of 35 s and "
+                f"transcribe_batch of {len(PARALLEL_WORDS_SECONDS)} requests "
+                f"{res['words_s']:.2f} s; results equal to the unsharded model "
+                f"{equal}; {n_words} words, probabilities max_abs {err:.3e}; "
+                f"{calls['align_forwards']} alignment forwards, K1-causal "
+                f"{launches['flash_attention_causal']}; on {card()}")
+            if (not all(equal) or err > 1e-5
+                    or launches["flash_attention_causal"]
+                    != cfg.n_text_layer * calls["align_forwards"]
+                    or not calls["align_forwards"]):
+                raise AssertionError(f"parallel words failed on {mesh} rank {r}")
+            out[f"words_{mesh[0]}x{mesh[1]}_prob_max_abs"] = max(
+                err, out.get(f"words_{mesh[0]}x{mesh[1]}_prob_max_abs", 0.0))
+            out[f"words_{mesh[0]}x{mesh[1]}_s"] = res["words_s"]
+    return out
+
+
+def parallel_streams_check(results, cfg) -> dict:
+    """The (1, 2) ranks' stream events: equal on every rank, tokens in the
+    vocabulary, each stream ending in a final event; K4, K1 and K3 were
+    counted on each rank by `main_path`."""
+    lead = results[0]["streams"]
+    for r, res in enumerate(results):
+        ev = res["streams"]
+        toks = [t for _, tokens, _ in ev["single"] + ev["multi"][0] + ev["multi"][1]
+                for t in tokens]
+        log(f"parallel streams bf16 (1, 2) rank {r}: {res['streams_s']:.2f} s; "
+            f"{len(ev['single'])} events of the stream, "
+            f"{[len(e) for e in ev['multi']]} of the two multistream streams, "
+            f"{len(toks)} tokens; equal to rank 0 {ev == lead}; launches "
+            f"{res['streams_launches']}; on {card()}")
+        if (ev != lead or not toks or not all(0 <= t < cfg.n_vocab for t in toks)
+                or not all(e[-1][2] for e in [ev["single"], *ev["multi"]])):
+            raise AssertionError(f"parallel streams failed on rank {r}: {ev}")
+    return {"streams_1x2_s": results[0]["streams_s"],
+            "streams_1x2_events": len(lead["single"]) + sum(map(len, lead["multi"]))}
+
+
+def rank_pid(launcher: int, rank: int) -> int:
+    """The pid of the torchrun worker of `rank`: a child of the launcher
+    process with RANK=rank in its environment."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != launcher:
+                continue
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if f"RANK={rank}".encode() in f.read().split(b"\0"):
+                    return int(pid)
+        except OSError:  # a process that ended meanwhile
+            continue
+    raise AssertionError(f"no rank {rank} among the launcher's children")
+
+
+def parallel_server() -> dict:
+    """The HTTP server at large-v3-turbo int8 (int8 cross-KV) under
+    `python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    openai_whisper_coreml_tpu_torch.serve_http ... --tensor-parallel 2
+    --warmup`: rank 0 serves, rank 1 follows its commands. Once /readyz is
+    200: /transcribe with and without words, the OpenAI route (verbose_json
+    words, json, srt), /detect, one /stream, two concurrent /transcribe
+    requests, then /metrics; then an interrupt to rank 0 stops the server
+    and releases rank 1, and the launcher must return 0. Cut for time: 8
+    tokens a window (--sample-len 8), batches of 2, one temperature a
+    request, a 2 s stream."""
+    import signal
+    import types
+
+    from openai_whisper_coreml_tpu_torch.config import get_config
+
+    cfg = get_config("large-v3-turbo")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    srv = types.SimpleNamespace(port=free_port())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "server.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "2", "-m", "openai_whisper_coreml_tpu_torch.serve_http",
+                 "--model", "large-v3-turbo", "--quantize", "int8", "--kv-dtype", "int8",
+                 "--tensor-parallel", "2", "--host", "127.0.0.1", "--port", str(srv.port),
+                 "--warmup", "--sample-len", "8", "--batch-size", "2"],
+                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=root,
+                start_new_session=True)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"parallel server exited with {proc.returncode}")
+                if time.perf_counter() - t0 > PARALLEL_TIMEOUT_S:
+                    raise AssertionError("parallel server: /readyz never turned 200")
+                try:
+                    if http(srv, "/readyz")[0] == 200:
+                        break
+                except urllib.error.URLError:  # not listening yet
+                    pass
+                time.sleep(0.5)
+            out["server_ready_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            short = wav_bytes(speechy(6, 80))
+            code, raw = http(srv, "/transcribe?language=en&temperature=0", short)
+            if code != 200:
+                raise AssertionError(f"parallel server /transcribe: {code} {raw[:300]!r}")
+            check_segments(json.loads(raw), cfg, 6.0)
+            n_words, verbose = server_routes(srv, "parallel server", short, "0")
+            code, raw = http(srv, "/stream?language=en", wav_bytes(speechy(2, 81)))
+            lines = [json.loads(x) for x in raw.decode().splitlines() if x]
+            if (code != 200 or not lines or lines[-1]["final"] is not True
+                    or any("error" in x for x in lines)):
+                raise AssertionError(f"parallel server /stream: {code} {lines}")
+            pair = [None, None]
+
+            def post(i):
+                pair[i] = http(srv, "/transcribe?language=en&temperature=0",
+                               wav_bytes(speechy(5 + 3 * i, 82 + i)))
+
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=PARALLEL_TIMEOUT_S)
+            for (code, raw), sec in zip(pair, (5, 8)):
+                if code != 200:
+                    raise AssertionError(f"parallel server concurrent: {code} {raw[:300]!r}")
+                check_segments(json.loads(raw), cfg, float(sec))
+            code, raw = http(srv, "/metrics")
+            metrics = json.loads(raw)
+            if code != 200 or metrics["counters"]["requests_total"] < 7:
+                raise AssertionError(f"parallel server /metrics: {code} {metrics}")
+            out["server_requests_s"] = time.perf_counter() - t1
+            os.kill(rank_pid(proc.pid, 0), signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            with open(log_path) as f:
+                server_log = f.read()
+    out["server_s"] = time.perf_counter() - t0
+    log("parallel server log: " + " | ".join(
+        line for line in server_log.splitlines()
+        if "warmup done" in line or "serving" in line or "batch done" in line))
+    log(f"parallel server (torch.distributed.run, 2 ranks, --tensor-parallel 2, "
+        f"large-v3-turbo int8): rc {rc}; ready after {out['server_ready_s']:.1f} s "
+        f"(the warm-up batch included), {metrics['counters'].get('requests_total')} "
+        f"requests in {out['server_requests_s']:.1f} s, {n_words} words on "
+        f"/transcribe, {len(verbose['words'])} in verbose_json, {len(lines)} stream "
+        f"lines, {metrics['counters'].get('batches_total')} batches; "
+        f"{out['server_s']:.1f} s in all on {card()}")
+    if rc != 0:
+        raise AssertionError(f"parallel server: the launcher returned {rc}:\n"
+                             f"{server_log[-3000:]}")
+    return out
 
 
 def parallel_cli() -> float:

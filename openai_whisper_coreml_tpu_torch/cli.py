@@ -23,8 +23,8 @@ transcription (CPU ops and CUDA kernels; `utils/profiling.device_trace`).
 
 which makes a (W / N, N) mesh, as JAX's CLI makes a (devices / N, N) one;
 `--draft-model` loads on the same mesh, and rank 0 alone prints and
-writes the output files. `--stream` and `--word-timestamps` do not run
-under a mesh yet (ROADMAP.md). Left out is the JAX CLI's `--batch`, which
+writes the output files; `--stream` and `--word-timestamps` run there
+too (every rank decodes, rank 0 prints). Left out is the JAX CLI's `--batch`, which
 it never reads. The models are built on the card; without one, loading
 them raises.
 """
@@ -218,12 +218,15 @@ def _run(args, mesh=None) -> int:
             chunk = 16_000  # 1 s
             for off in range(0, len(audio), chunk):
                 for ev in st.feed(audio[off:off + chunk]):
-                    print(ev.text, end="", flush=True)
+                    if main_rank:
+                        print(ev.text, end="", flush=True)
             for ev in st.finish():
-                print(ev.text, flush=True)
+                if main_rank:
+                    print(ev.text, flush=True)
             elapsed = time.time() - t0
-            print(f"{path}: streamed {duration:.1f}s in {elapsed:.1f}s",
-                  file=sys.stderr)
+            if main_rank:
+                print(f"{path}: streamed {duration:.1f}s in {elapsed:.1f}s",
+                      file=sys.stderr)
             continue
 
         if args.task == "lang-id":

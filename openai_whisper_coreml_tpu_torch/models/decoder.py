@@ -28,8 +28,8 @@ then runs the flash kernel's causal mode on the card (JAX's
 teacher forcing as the causal mode's use). The decode loops never set it.
 
 Under a model axis (`parallel/`) each rank holds n_text_head / n_model
-heads (`TextDecoder.n_head`): the caches and cross K/V are the rank's
-heads (`parallel.sharding.KV_PSPEC`), and K3 / K6 run on
+heads (`TextDecoder.n_head`): the caches and cross K/V hold the rank's
+heads, so cache writes need no exchange, and K3 / K6 run on
 (B, heads of the rank, 64, S). The tied-embedding logits stay replicated,
 as JAX keeps the table whole.
 """
@@ -47,8 +47,9 @@ from ..config import WhisperConfig
 from ..ops.sqa_int8 import LayerAttend, sqa_int8_layers
 from ..ops.sqa_self import sqa_self_layers
 from ..quantize import ieee_div
-from .layers import (MLP, Attention, LayerNorm, frozen, layer_norm,
-                     layer_slice, merge_heads, self_attention, split_heads)
+from .layers import (MLP, Attention, LayerNorm, fp32_product, frozen,
+                     layer_norm, layer_slice, merge_heads, self_attention,
+                     split_heads)
 
 Position = Union[int, torch.Tensor]
 
@@ -262,9 +263,10 @@ def embed_tokens(decoder: TextDecoder, tokens: torch.Tensor,
 
 
 def final_logits(decoder: TextDecoder, x: torch.Tensor) -> torch.Tensor:
-    """ln -> tied-embedding projection; logits returned in fp32."""
+    """ln -> tied-embedding projection; logits returned in fp32, the
+    product unrounded (JAX's `preferred_element_type=float32`)."""
     x = layer_norm(x, decoder.ln)
-    return (x @ decoder.token_embedding.to(x.dtype).T).float()
+    return fp32_product(x, decoder.token_embedding.T)
 
 
 CacheIndex = Union[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]

@@ -7,7 +7,10 @@ with the JAX package's numerics:
   * layer norm and softmax in fp32 whatever the activation dtype;
   * products accumulate in fp32 (bf16 x bf16 products are exact in fp32,
     so upcasting the attention operands reproduces JAX's
-    `preferred_element_type=float32`);
+    `preferred_element_type=float32`); every linear's product and the
+    tied-embedding logits come out of `fp32_product` unrounded, and the
+    scale, the LoRA term and the bias are added in fp32 before the one
+    cast at the end;
   * attention scales q and k each by D^-0.25 (openai numerics);
   * `self_attention(flash=True)` goes through `ops.flash_attention`, which
     launches the Hopper kernel on CUDA tensors (the encoder by default;
@@ -22,8 +25,8 @@ builds no graph); training asks for the leaves it trains, and
 Under a (data, model) mesh (`parallel/`) the attention and MLP linears
 are `ParallelLinear`s over this rank's shard: column-parallel (q, k, v,
 fc1: local output columns, so local heads) or row-parallel (out, fc2:
-local input rows; each rank's partial product is computed in fp32 from
-upcast operands, all-reduced over the model group unrounded and the bias
+local input rows; each rank's partial product is taken in fp32
+(`fp32_product`), all-reduced over the model group unrounded and the bias
 added after the sum, as GSPMD runs JAX's `dot(x, w) + b`). Training
 goes through Megatron's pair of communication ops, written by hand as
 autograd Functions (`copy_to_model`, `reduce_from_model`); at inference
@@ -180,7 +183,7 @@ class ParallelLinear(Linear):
     "col": the output columns [r*n, (r+1)*n) of w (and of the bias and the
     int8 scale); the input is replicated. "row": the input rows of w; the
     input is this rank's slice of the features, the products are taken in
-    fp32 (`_partial_product`) and summed over the model group before the
+    fp32 (`fp32_product`) and summed over the model group before the
     scale and the bias. LoRA adapters stay whole (JAX replicates them): a
     column-parallel linear uses its columns of `lora_b`, a row-parallel one
     its rows of `lora_a`, whose partial product is summed in fp32 before
@@ -200,9 +203,9 @@ class ParallelLinear(Linear):
         w = self.w if self.w_q is None else self.w_q
         if self.mode == "col":
             x = copy_to_model(x, self.axis)
-            y = (x @ w.to(x.dtype)).float()
+            y = fp32_product(x, w)
         else:
-            y = reduce_from_model(_partial_product(x, w), self.axis)
+            y = reduce_from_model(fp32_product(x, w), self.axis)
         if self.w_q is not None:
             y = y * self.scale
         if self.lora_a is not None:
@@ -210,25 +213,52 @@ class ParallelLinear(Linear):
             if self.mode == "col":
                 n = w.shape[-1]
                 b = b[:, self.axis.rank * n:(self.axis.rank + 1) * n]
-                xa = (x @ a.to(x.dtype)).float()
-                y = y + (xa.to(x.dtype) @ b.to(x.dtype)).float()
+                xa = fp32_product(x, a)
             else:
                 n = w.shape[0]
                 a = a[self.axis.rank * n:(self.axis.rank + 1) * n]
-                xa = reduce_from_model(_partial_product(x, a), self.axis)
-                y = y + _partial_product(xa.to(x.dtype), b)
+                xa = reduce_from_model(fp32_product(x, a), self.axis)
+            y = y + fp32_product(xa.to(x.dtype), b)
         if self.b is not None:
             y = y + self.b.float()
         return y.to(x.dtype)
 
 
-def _partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """A row-parallel linear's products in fp32, JAX's
-    `preferred_element_type=float32`: each rank's partial, which GSPMD
-    sums unrounded, and LoRA's up-projection of the summed bottleneck. The
-    operands are upcast (a bf16 x bf16 product is exact in fp32), so no
-    bf16 rounding comes before the one cast at the end."""
-    return x.float() @ w.float()
+def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in fp32 with no rounding before the result, JAX's
+    `dot(..., preferred_element_type=float32)`: w is cast to x's dtype
+    first (int8 codes are exact in bf16). On the card a bf16 or fp16
+    product is one GEMM with an fp32 output (`aten::mm.dtype`, the
+    activations flattened to 2-D); elsewhere, and for fp32, the operands
+    are upcast (a bf16 x bf16 product is exact in fp32; fp32 is left as
+    it is)."""
+    w = w.to(x.dtype)
+    if not (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)):
+        return x.float() @ w.float()
+    x2d = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _Fp32Product.apply(x2d, w)
+    else:
+        y = torch.mm(x2d, w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _Fp32Product(torch.autograd.Function):
+    """`aten::mm.dtype` for training, which has no derivative of its own:
+    the backward takes the half-precision products that `(x @ w).float()`
+    would (the fp32 gradient cast to the operands' dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w.T if ctx.needs_input_grad[0] else None,
+                x.T @ g if ctx.needs_input_grad[1] else None)
 
 
 def make_linear(p: Mapping[str, torch.Tensor], axis, mode: str) -> Linear:
@@ -279,16 +309,16 @@ def layer_norm(x: torch.Tensor, p: LayerNorm, eps: float = 1e-5) -> torch.Tensor
 
 
 def linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
+    """JAX's `linear`: the product in fp32, then (int8) the per-output-channel
+    scale, the LoRA bottleneck and the bias, added in fp32 before one cast
+    to x's dtype."""
+    y = fp32_product(x, p.w if p.w_q is None else p.w_q)
     if p.w_q is not None:
-        # weights-only int8: dequantise to the activation dtype, scale after
-        # the contraction (a plain product, as the JAX package leaves it to XLA)
-        y = (x @ p.w_q.to(x.dtype)).float() * p.scale
-    else:
-        y = (x @ p.w.to(x.dtype)).float()
+        y = y * p.scale
     if p.lora_a is not None:
-        # the rank-r bottleneck, added in fp32 before the bias (JAX `linear`)
-        xa = (x @ p.lora_a.to(x.dtype)).float()
-        y = y + (xa.to(x.dtype) @ p.lora_b.to(x.dtype)).float()
+        # the rank-r bottleneck, rounded to x's dtype as JAX rounds it
+        xa = fp32_product(x, p.lora_a)
+        y = y + fp32_product(xa.to(x.dtype), p.lora_b)
     if p.b is not None:
         y = y + p.b.float()
     return y.to(x.dtype)

@@ -3,7 +3,6 @@ model) mesh and the Megatron sharding rules (port of `parallel/`)."""
 
 from .distributed import (initialize_distributed, is_main_process,  # noqa: F401
                           local_batch_slice, local_device)
-from .mesh import (AXIS_DATA, AXIS_MODEL, PartitionSpec,  # noqa: F401
-                   data_sharding, make_mesh, replicated)
-from .sharding import (KV_PSPEC, KV_SCALE_PSPEC, align_pspecs,  # noqa: F401
-                       gather_params, param_pspecs, shard_params)
+from .mesh import AXIS_DATA, AXIS_MODEL, PartitionSpec, make_mesh  # noqa: F401
+from .sharding import (align_pspecs, gather_params, param_pspecs,  # noqa: F401
+                       shard_params)

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 600.0
+_timeout_s = DEFAULT_TIMEOUT_S  # the joined group's, for group_timeout_s
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -99,6 +100,8 @@ def initialize_distributed(
         backend = choose_backend(local_world)
     if torch.cuda.is_available():
         torch.cuda.set_device(local_device())
+    global _timeout_s
+    _timeout_s = float(timeout_s)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -107,6 +110,12 @@ def initialize_distributed(
               f"({local_world} local ranks, "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               " cards)", flush=True)
+
+
+def group_timeout_s() -> float:
+    """The collective timeout that `initialize_distributed` gave the
+    process group (DEFAULT_TIMEOUT_S for a group joined otherwise)."""
+    return _timeout_s
 
 
 def world_size() -> int:
@@ -131,15 +140,12 @@ def is_main_process() -> bool:
 
 
 def local_batch_slice(global_batch: int, mesh=None) -> slice:
-    """This rank's rows of a batch split over the data axis: the mesh's
-    data axis when one is given, else every process a data rank (JAX's
-    process-level split). Raises on a batch the axis does not divide."""
-    if mesh is None:
-        n, i = world_size(), rank()
-    else:
-        from .mesh import AXIS_DATA, axis_rank, axis_size
+    """This rank's rows of a batch split over the mesh's data axis (the
+    whole batch without a mesh). Raises on a batch the axis does not
+    divide."""
+    from .mesh import AXIS_DATA, axis_rank, axis_size
 
-        n, i = axis_size(mesh, AXIS_DATA), axis_rank(mesh, AXIS_DATA)
+    n, i = axis_size(mesh, AXIS_DATA), axis_rank(mesh, AXIS_DATA)
     per = global_batch // n
     if per * n != global_batch:
         raise ValueError(f"global batch {global_batch} not divisible by "

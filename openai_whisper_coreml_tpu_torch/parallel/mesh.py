@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import pickle
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch.distributed as dist
@@ -64,29 +65,21 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1):
                             mesh_dim_names=(AXIS_DATA, AXIS_MODEL))
 
 
-def launch_mesh(n_model: int, flag: str):
+def launch_mesh(n_model: int, flag: str,
+                command: str = "openai_whisper_coreml_tpu_torch f.wav"):
     """The (world / n_model, n_model) mesh of a torchrun launch, joining
     the process group first (the entry points' `flag`, e.g.
-    --tensor-parallel); raises outside a launch, saying how to start one."""
+    --tensor-parallel); raises outside a launch, saying how to start one
+    (`command`: the entry point's module and arguments)."""
     from .distributed import initialize_distributed, launched_ranks
 
     if launched_ranks() == 1:
         raise RuntimeError(
             f"{flag} {n_model} runs one process per rank: launch with "
             f"torchrun --nproc-per-node W (W a multiple of {n_model}), e.g. "
-            f"torchrun --nproc-per-node {n_model} -m "
-            f"openai_whisper_coreml_tpu_torch f.wav {flag} {n_model}")
+            f"torchrun --nproc-per-node {n_model} -m {command} {flag} {n_model}")
     initialize_distributed()
     return make_mesh(n_model=n_model)
-
-
-def data_sharding(mesh) -> PartitionSpec:
-    """Batch-axis sharding for activations and inputs."""
-    return P(AXIS_DATA)
-
-
-def replicated(mesh) -> PartitionSpec:
-    return P()
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -151,6 +144,21 @@ def gather_objects(mesh, obj) -> List[Any]:
     return out
 
 
+class _Raised(NamedTuple):
+    """A data rank's share that raised: the exception, carried through the
+    gather so that every rank raises it."""
+
+    error: BaseException
+
+
+def _picklable(e: Exception) -> Exception:
+    try:
+        pickle.loads(pickle.dumps(e))
+        return e
+    except Exception:
+        return RuntimeError(f"{type(e).__name__}: {e}")
+
+
 def split_over_data(mesh, n: int, fn: Callable[[int, int], list],
                     pad: bool = False) -> list:
     """Run `fn(lo, hi)` -> a list of hi - lo results on this data rank's
@@ -158,7 +166,9 @@ def split_over_data(mesh, n: int, fn: Callable[[int, int], list],
     return the n results in order on every rank. Shares hold ceil(n / d)
     items; with `pad` the last shares run past n (the caller repeats its
     last item there, as JAX pads a batch to the data axis) and the extra
-    results are dropped, else they are cut short, possibly empty."""
+    results are dropped, else they are cut short, possibly empty. A share
+    that raises still joins the gather, and then every rank raises its
+    exception (the first in data-rank order): the ranks stay in step."""
     d = data_ways(mesh)
     if d == 1:
         return fn(0, n)
@@ -168,13 +178,12 @@ def split_over_data(mesh, n: int, fn: Callable[[int, int], list],
     if not pad:
         lo, hi = min(lo, n), min(hi, n)
     with data_local():
-        part = fn(lo, hi) if hi > lo else []
-    return [x for p in gather_objects(mesh, part) for x in p][:n]
-
-
-def refuse_on_mesh(model, what: str) -> None:
-    """Raise for a path that does not run under a mesh yet."""
-    if getattr(model, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh (parallel/) is not ported yet "
-            "(ROADMAP.md, Queue 1: the next slice)")
+        try:
+            part = fn(lo, hi) if hi > lo else []
+        except Exception as e:
+            part = _Raised(_picklable(e))
+    parts = gather_objects(mesh, part)
+    for p in parts:
+        if isinstance(p, _Raised):
+            raise p.error
+    return [x for p in parts for x in p][:n]

@@ -27,16 +27,9 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from ..config import WhisperConfig
-from .mesh import AXIS_DATA, AXIS_MODEL, P, PartitionSpec, model_axis
+from .mesh import AXIS_MODEL, P, PartitionSpec, model_axis
 
 Params = Dict[str, Any]
-
-# The KV cache and cross-KV are stored d-major (L, B, H, D, S): batch on
-# "data", heads on "model" (the column-parallel k/v give each rank its
-# heads, so cache writes need no exchange).
-KV_PSPEC = P(None, AXIS_DATA, AXIS_MODEL, None, None)  # (L, B, H, D, S)
-KV_SCALE_PSPEC = P(None, AXIS_DATA, AXIS_MODEL, None, None)  # (L, B, H, 1, S)
-
 
 def _attn_specs(stacked: bool) -> Params:
     L = (None,) if stacked else ()

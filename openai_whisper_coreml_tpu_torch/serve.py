@@ -187,11 +187,9 @@ def transcribe_batch(
     groups; each model group runs the scheduler in lockstep on its share,
     and every rank returns all the results in request order."""
     from .audio import load_audio
-    from .parallel.mesh import data_ways, refuse_on_mesh, split_over_data
+    from .parallel.mesh import data_ways, split_over_data
 
     mesh = getattr(model, "mesh", None)
-    if options.word_timestamps:
-        refuse_on_mesh(model, "word_timestamps=True")
     if data_ways(mesh) > 1:
         audios = list(audios)
         return split_over_data(mesh, len(audios), lambda lo, hi: transcribe_batch(

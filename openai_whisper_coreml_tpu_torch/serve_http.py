@@ -36,10 +36,23 @@ launches under a lock. With a paired draft (`--draft-model`, or
 `model.draft` in-process) batches decode speculatively under the model's
 acceptance governor and /stream ticks under one governor per stream;
 /metrics then carries the speculative counters and the governor's gauges,
-each batch's read as differences of `speculative.TOTALS`. The server
-does not run on a mesh yet (the batch functions do, `parallel/`): it
-needs a front end on rank 0 that broadcasts each batch to the other
-ranks, so `--tensor-parallel` above 1 raises NotImplementedError.
+each batch's read as differences of `speculative.TOTALS`.
+
+Under a (data, model) mesh (`--tensor-parallel N` under torchrun, or a
+mesh model in-process) rank 0 runs this front end and the other ranks run
+`follow`. Every call that touches the model is one command (`_execute`:
+a batch, the warm-up, /detect, a /stream's open, feed and close), which
+rank 0 broadcasts over the world and every rank runs, in one order: rank
+0 issues its commands one at a time under a lock, so the collectives
+inside them meet. A request that fails validation answers 4xx before
+anything is sent; a command that raises raises on every rank, and each
+rank carries on (rank 0 answers 500). While idle, rank 0 sends a no-op
+every quarter of the process group's timeout, so the followers, blocked
+in the broadcast, never time out; `stop()` sends the followers a stop.
+Only rank 0 answers requests and keeps /metrics.
+
+    torchrun --nproc-per-node N -m openai_whisper_coreml_tpu_torch.serve_http \
+        --model large-v3 --quantize int8 --kv-dtype int8 --tensor-parallel N
 """
 
 from __future__ import annotations
@@ -60,6 +73,80 @@ from .utils.obs import Metrics, get_logger, kv
 
 log = get_logger("serve_http")
 _req_ids = itertools.count(1)
+_stream_ids = itertools.count(1)
+
+
+# -- model commands ---------------------------------------------------------
+# A command is a tuple (op, *args) of plain Python and numpy values: the
+# same call on every rank of a mesh.
+
+def _execute(model, streams: Dict[int, Any], cmd: tuple):
+    """Run one command on this rank's model; `streams` holds the rank's
+    StreamingTranscribers by stream id."""
+    op, args = cmd[0], cmd[1:]
+    if op == "batch":  # the batch worker's and the warm-up's call
+        from . import serve
+
+        audios, options = args
+        return serve.transcribe_batch(model, audios, serve.ServeOptions(**options))
+    if op == "detect":
+        from .audio import pad_or_trim
+        from .decoding import detect_language
+
+        # the mel stays a tensor on the model's device
+        mel = model.log_mel(pad_or_trim(args[0]))
+        codes, probs = detect_language(model, mel[None])
+        return codes[0], probs[0]
+    if op == "stream_open":
+        from .stream import StreamingTranscriber
+
+        sid, kw = args
+        # the server's paired draft speeds the tick decodes; the stream's
+        # own governor handles low acceptance
+        streams[sid] = StreamingTranscriber(
+            model, draft_model=getattr(model, "draft", None), **kw)
+        return None
+    if op in ("stream_feed", "stream_finish"):
+        sid = args[0]
+        try:
+            if op == "stream_feed":
+                return streams[sid].feed(args[1])
+            return streams.pop(sid).finish()
+        except BaseException:
+            streams.pop(sid, None)  # a failed stream is closed on every rank
+            raise
+    if op == "stream_close":
+        streams.pop(args[0], None)
+        return None
+    if op == "noop":
+        return None
+    raise ValueError(f"unknown server command {op!r}")
+
+
+def _broadcast(cmd: Optional[tuple]) -> tuple:
+    """Rank 0's command, on every rank of the world."""
+    import torch.distributed as dist
+
+    box = [cmd]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def follow(model) -> None:
+    """A rank other than 0 of a mesh server: run rank 0's commands in its
+    order until it stops. A command that raises here raised on rank 0 too
+    (every rank runs the same call on the same inputs); it is logged, and
+    the next command runs."""
+    streams: Dict[int, Any] = {}
+    while True:
+        cmd = _broadcast(None)
+        if cmd[0] == "stop":
+            return
+        try:
+            _execute(model, streams, cmd)
+        except Exception as e:
+            log.warning("command failed %s", kv(
+                op=cmd[0], error=f"{type(e).__name__}: {e}"))
 
 
 @dataclass
@@ -89,11 +176,21 @@ class WhisperHTTPServer:
         warmup: run one full-batch transcribe_batch over silence at startup
         (with the server's default options), so the first real request
         finds the kernels built and the card's libraries loaded; /readyz
-        flips to 200 when done."""
-        from .parallel.mesh import refuse_on_mesh
-
-        refuse_on_mesh(model, "WhisperHTTPServer")
+        flips to 200 when done. Under a mesh this runs on rank 0 (the
+        other ranks run `follow`), and while idle it sends a no-op command
+        every quarter of the process group's timeout (`heartbeat_s`)."""
         self.model = model
+        self._mesh = getattr(model, "mesh", None) is not None
+        self._streams: Dict[int, Any] = {}
+        self._model_lock = threading.Lock()  # one command at a time (mesh)
+        self._released = False  # the followers were sent their stop
+        if self._mesh:
+            from .parallel.distributed import group_timeout_s, rank
+
+            if rank() != 0:
+                raise ValueError("a mesh server runs on rank 0; the other "
+                                 "ranks run serve_http.follow(model)")
+            self.heartbeat_s = group_timeout_s() / 4
         self.default_options = dict(default_options or {})
         self.batch_size = batch_size
         self.batch_window_ms = batch_window_ms
@@ -115,11 +212,58 @@ class WhisperHTTPServer:
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
 
+    # -- model commands -----------------------------------------------------
+
+    def _call(self, *cmd):
+        """Run one model command. Under a mesh it is broadcast first, under
+        the lock that orders every rank's commands alike."""
+        if not self._mesh:
+            return _execute(self.model, self._streams, cmd)
+        with self._model_lock:
+            if self._released:
+                raise RuntimeError("server shutting down")
+            _broadcast(cmd)
+            return _execute(self.model, self._streams, cmd)
+
+    def _heartbeat(self) -> None:
+        """A no-op command every heartbeat_s until stop (mesh only)."""
+        while not self._stop.wait(self.heartbeat_s):
+            try:
+                self._call("noop")
+            except RuntimeError:  # released by stop()
+                return
+
+    def _release(self) -> None:
+        """Send the followers their stop, once; later commands refuse."""
+        with self._model_lock:
+            if not self._released:
+                self._released = True
+                _broadcast(("stop",))
+
+    def _close_stream(self, sid: int) -> None:
+        """Drop a stream that its handler left open (a client that went
+        away, a shutdown) on every rank."""
+        if sid in self._streams:
+            try:
+                self._call("stream_close", sid)
+            except RuntimeError:  # released: the followers are gone
+                self._streams.pop(sid, None)
+
+    def batch_options(self, options: Dict[str, Any]) -> Dict[str, Any]:
+        """A request's ServeOptions fields over the server's defaults and
+        its batch size, checked: raises ValueError or TypeError on options
+        that ServeOptions refuses (the handlers answer 400 before any
+        model work)."""
+        from .serve import ServeOptions
+
+        merged = {**self.default_options, **options, "batch_size": self.batch_size}
+        ServeOptions(**merged)
+        return merged
+
     # -- batching worker ----------------------------------------------------
 
     def _drain(self) -> None:
         from . import speculative
-        from .serve import ServeOptions, transcribe_batch
 
         while not self._stop.is_set():
             try:
@@ -149,14 +293,12 @@ class WhisperHTTPServer:
                 by_opts.setdefault(json.dumps(j.options, sort_keys=True),
                                    []).append(j)
             for opts_key, group in by_opts.items():
-                opts = {**self.default_options, **json.loads(opts_key)}
                 t0 = time.monotonic()
                 audio_s = sum(len(j.audio) for j in group) / 16_000.0
                 spec_before = dict(speculative.TOTALS)
                 try:
-                    results = transcribe_batch(
-                        self.model, [j.audio for j in group],
-                        ServeOptions(batch_size=self.batch_size, **opts))
+                    results = self._call("batch", [j.audio for j in group],
+                                         self.batch_options(json.loads(opts_key)))
                     for j, r in zip(group, results):
                         j.result = r
                 except Exception as e:  # surface per-request, keep serving
@@ -223,14 +365,10 @@ class WhisperHTTPServer:
         options, the call the drain worker makes, so the kernels are built
         and mel, encoder, language detection and decode have run once when
         /readyz goes green."""
-        from .serve import ServeOptions, transcribe_batch
-
         t0 = time.monotonic()
         try:
             silence = [np.zeros(16_000, np.float32)] * self.batch_size
-            transcribe_batch(self.model, silence,
-                             ServeOptions(batch_size=self.batch_size,
-                                          **self.default_options))
+            self._call("batch", silence, self.batch_options({}))
             log.info("warmup done %s", kv(
                 batch=self.batch_size,
                 seconds=round(time.monotonic() - t0, 1)))
@@ -400,22 +538,27 @@ class WhisperHTTPServer:
                 beside the batch worker's. Suits a few
                 concurrent live streams; for many, use
                 stream.MultiStreamTranscriber behind a gateway."""
-                from .stream import StreamingTranscriber
-
                 if qs.get("task", "transcribe") not in ("transcribe",
                                                         "translate"):
                     self._json(400, {"error": f"unknown task "
                                               f"{qs.get('task')!r}"})
                     return
-                st = StreamingTranscriber(
-                    server.model, language=qs.get("language", "en"),
-                    task=qs.get("task", "transcribe"),
-                    vad_gate=qs.get("vad") in ("1", "true"),
-                    decode_interval=float(qs.get("decode_interval", "1.0")),
-                    # the server's paired draft speeds the tick decodes; the
-                    # stream's own governor handles low acceptance
-                    draft_model=getattr(server.model, "draft", None),
-                    spec_k=int(server.default_options.get("spec_k", 4)))
+                try:
+                    kw = dict(language=qs.get("language", "en"),
+                              task=qs.get("task", "transcribe"),
+                              vad_gate=qs.get("vad") in ("1", "true"),
+                              decode_interval=float(
+                                  qs.get("decode_interval", "1.0")),
+                              spec_k=int(server.default_options.get("spec_k", 4)))
+                except ValueError as e:
+                    self._json(400, {"error": f"bad stream option: {e}"})
+                    return
+                sid = next(_stream_ids)
+                try:
+                    server._call("stream_open", sid, kw)
+                except Exception as e:
+                    self._json(500, {"error": str(e)})
+                    return
                 self.send_response(200)
                 self.send_header("Content-Type", "application/x-ndjson")
                 self._cors()
@@ -427,6 +570,10 @@ class WhisperHTTPServer:
                     self.wfile.write(f"{len(data):x}\r\n".encode()
                                      + data + b"\r\n")
                     self.wfile.flush()
+
+                def feed(piece) -> None:
+                    for ev in server._call("stream_feed", sid, piece):
+                        emit({"text": ev.text, "final": False})
 
                 te = (self.headers.get("Transfer-Encoding") or "").lower()
                 try:
@@ -452,18 +599,18 @@ class WhisperHTTPServer:
                                 piece = np.frombuffer(pending[:usable],
                                                       np.float32)
                                 pending = pending[usable:]
-                                for ev in st.feed(piece):
-                                    emit({"text": ev.text, "final": False})
+                                feed(piece)
                     else:
                         audio = self._read_audio()  # raw-PCM or WAV body
                         sr = 16_000
                         for off in range(0, len(audio), sr):
-                            for ev in st.feed(audio[off : off + sr]):
-                                emit({"text": ev.text, "final": False})
-                    for ev in st.finish():
+                            feed(audio[off : off + sr])
+                    for ev in server._call("stream_finish", sid):
                         emit({"text": ev.text, "final": True})
                 except Exception as e:  # surface in-band; stream stays valid
                     emit({"error": str(e), "final": True})
+                finally:
+                    server._close_stream(sid)
                 self.wfile.write(b"0\r\n\r\n")
 
             # -- OpenAI-compatible audio API ------------------------------
@@ -569,6 +716,11 @@ class WhisperHTTPServer:
                         return
                 if "word" in grans:
                     options["word_timestamps"] = True
+                try:
+                    server.batch_options(options)
+                except (ValueError, TypeError) as e:
+                    self._oa_error(400, f"bad option: {e}")
+                    return
 
                 server.metrics.inc("openai_requests_total")
                 job = server.submit(audio, options)
@@ -657,50 +809,20 @@ class WhisperHTTPServer:
                 if parsed.path == "/detect":
                     server.metrics.inc("detects_total")
                     try:
-                        from .audio import pad_or_trim
-                        from .decoding import detect_language
-
-                        # the mel stays a tensor on the model's device
-                        mel = server.model.log_mel(pad_or_trim(audio))
-                        codes, probs = detect_language(server.model, mel[None])
-                        top = dict(sorted(probs[0].items(),
+                        code, probs = server._call("detect", audio)
+                        top = dict(sorted(probs.items(),
                                           key=lambda kv: -kv[1])[:5])
-                        self._json(200, {"language": codes[0], "probs": top})
+                        self._json(200, {"language": code, "probs": top})
                     except Exception as e:
                         self._json(500, {"error": str(e)})
                     return
 
-                options: Dict[str, Any] = {}
-                if "task" in qs:
-                    options["task"] = qs["task"]
-                if "language" in qs:
-                    options["language"] = qs["language"]
-                if "beam_size" in qs:
-                    options["beam_size"] = int(qs["beam_size"])
-                if "sample_len" in qs:
-                    options["sample_len"] = int(qs["sample_len"])
-                if qs.get("without_timestamps") in ("1", "true"):
-                    options["without_timestamps"] = True
-                if qs.get("word_timestamps") in ("1", "true"):
-                    options["word_timestamps"] = True
-                if qs.get("vad") in ("1", "true"):
-                    options["vad_filter"] = True
-                if "no_speech_threshold" in qs:
-                    v = qs["no_speech_threshold"]
-                    options["no_speech_threshold"] = (None if v == "none"
-                                                      else float(v))
-                if "logprob_threshold" in qs:
-                    v = qs["logprob_threshold"]
-                    options["logprob_threshold"] = (None if v == "none"
-                                                    else float(v))
-                if "compression_ratio_threshold" in qs:
-                    v = qs["compression_ratio_threshold"]
-                    options["compression_ratio_threshold"] = (
-                        None if v == "none" else float(v))
-                if "temperature" in qs:
-                    options["temperature"] = tuple(
-                        float(t) for t in qs["temperature"].split(","))
-
+                try:
+                    options = _query_options(qs)
+                    server.batch_options(options)
+                except (ValueError, TypeError) as e:
+                    self._json(400, {"error": f"bad option: {e}"})
+                    return
                 job = server.submit(audio, options)
                 if job.error:
                     self._json(500, {"error": job.error})
@@ -713,6 +835,8 @@ class WhisperHTTPServer:
 
     def start(self) -> None:
         self._worker.start()
+        if self._mesh:
+            threading.Thread(target=self._heartbeat, daemon=True).start()
         if self._do_warmup:
             threading.Thread(target=self._warmup, daemon=True).start()
         threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
@@ -730,6 +854,37 @@ class WhisperHTTPServer:
                 break
             job.error = "server shutting down"
             job.done.set()
+        if self._mesh:
+            # after the command in flight, if any: the followers return
+            self._release()
+
+
+def _query_options(qs: Dict[str, str]) -> Dict[str, Any]:
+    """/transcribe's query string as ServeOptions fields; raises
+    ValueError on a value that does not parse."""
+    options: Dict[str, Any] = {}
+    if "task" in qs:
+        options["task"] = qs["task"]
+    if "language" in qs:
+        options["language"] = qs["language"]
+    if "beam_size" in qs:
+        options["beam_size"] = int(qs["beam_size"])
+    if "sample_len" in qs:
+        options["sample_len"] = int(qs["sample_len"])
+    if qs.get("without_timestamps") in ("1", "true"):
+        options["without_timestamps"] = True
+    if qs.get("word_timestamps") in ("1", "true"):
+        options["word_timestamps"] = True
+    if qs.get("vad") in ("1", "true"):
+        options["vad_filter"] = True
+    for name in ("no_speech_threshold", "logprob_threshold",
+                 "compression_ratio_threshold"):
+        if name in qs:
+            options[name] = None if qs[name] == "none" else float(qs[name])
+    if "temperature" in qs:
+        options["temperature"] = tuple(
+            float(t) for t in qs["temperature"].split(","))
+    return options
 
 
 def main(argv=None) -> int:
@@ -742,7 +897,8 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8090)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--tensor-parallel", type=int, default=1,
-                    help="shard over N cards (not in the server yet; 1 only)")
+                    help="TP degree under torchrun: a (ranks / N, N) mesh; "
+                         "rank 0 serves, the other ranks follow its commands")
     ap.add_argument("--quantize", choices=("int8",), default=None,
                     help="weights-only int8 serving")
     ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
@@ -757,6 +913,9 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", action="store_true",
                     help="run one batch at startup; /readyz returns 503 "
                          "until done")
+    ap.add_argument("--sample-len", type=int, default=None, metavar="N",
+                    help="decode at most N tokens a window (ServeOptions."
+                         "sample_len; default: half the text context)")
     ap.add_argument("--draft-model", default=None, metavar="NAME",
                     help="paired draft for speculative decoding on the static "
                          "scheduler's greedy and sampled rungs (e.g. "
@@ -767,33 +926,59 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft proposals per speculative verify step")
     args = ap.parse_args(argv)
-    if args.tensor_parallel > 1:
-        raise NotImplementedError(
-            "--tensor-parallel > 1 in the HTTP server (parallel/) is not "
-            "ported yet: it needs a front end on rank 0 that broadcasts each "
-            "batch to the other ranks (ROADMAP.md, Queue 1)")
 
     from . import load_model
 
+    import torch.distributed as dist
+
+    mesh, joined = None, dist.is_initialized()
+    if args.tensor_parallel > 1:
+        from .parallel.mesh import launch_mesh
+
+        mesh = launch_mesh(args.tensor_parallel, "--tensor-parallel",
+                           "openai_whisper_coreml_tpu_torch.serve_http")
+    on_mesh = {} if mesh is None else {"mesh": mesh}
     model = load_model(args.model, checkpoint=args.checkpoint,
-                       quantize=args.quantize)
+                       quantize=args.quantize, **on_mesh)
     if args.draft_model:
         from .speculative import check_pair
 
         draft = load_model(args.draft_model, checkpoint=args.draft_checkpoint,
-                           quantize=args.quantize)
+                           quantize=args.quantize, **on_mesh)
         check_pair(model.cfg, draft.cfg)
         model.draft = draft
+    if mesh is None:
+        return _serve(model, args)
+    try:
+        if dist.get_rank() != 0:
+            follow(model)
+            return 0
+        return _serve(model, args)
+    finally:
+        if not joined:
+            dist.destroy_process_group()
+
+
+def _serve(model, args) -> int:
+    """Rank 0's (or the only process's) server, until SIGINT or SIGTERM."""
+    import signal
+
+    defaults = {"kv_dtype": args.kv_dtype, "scheduler": args.scheduler,
+                "spec_k": args.spec_k}
+    if args.sample_len is not None:
+        defaults["sample_len"] = args.sample_len
     server = WhisperHTTPServer(model, args.host, args.port,
                                batch_size=args.batch_size,
                                allow_origin=args.allow_origin,
-                               warmup=args.warmup,
-                               default_options={"kv_dtype": args.kv_dtype,
-                                                "scheduler": args.scheduler,
-                                                "spec_k": args.spec_k})
+                               warmup=args.warmup, default_options=defaults)
     server.start()
     print(f"serving {args.model} on {args.host}:{server.port} "
           f"({model.device})", flush=True)
+
+    def interrupt(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, interrupt)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -22,6 +22,10 @@ acceptance governor per stream, or one per tier for
 `MultiStreamTranscriber`. `MultiStreamTranscriber` decodes the due streams'
 windows as one batch without padding it to the stream count (JAX pads to
 reuse one compiled graph; PyTorch runs eagerly, and rows do not interact).
+Under a (data, model) mesh (`parallel/`) every rank runs the same stream:
+each tick's decode goes through `decode`, which splits the rows over the
+data groups and gathers the tokens on every rank, so every rank emits the
+same events.
 """
 
 from __future__ import annotations
@@ -41,12 +45,15 @@ from .decoding import DecodingOptions, decode
 _SAMPLE_BUCKETS = (32, 64, 128, 224)
 
 
-def _governor(draft_model, spec_k: int, batch: int):
-    """The acceptance governor of a stream (batch 1) or a tier."""
+def _governor(model, draft_model, spec_k: int, batch: int):
+    """The acceptance governor of a stream (batch 1) or a tier. Under a
+    mesh it keeps its prior threshold: walls differ between ranks, and the
+    ranks must take every branch alike."""
     if draft_model is None:
         return None
     return spec_mod.SpecGovernor(
-        threshold=spec_mod.break_even_tokens_per_iter(spec_k, batch=batch))
+        threshold=spec_mod.break_even_tokens_per_iter(spec_k, batch=batch),
+        pinned=getattr(model, "mesh", None) is not None)
 
 
 def _governed_decode(model, mel, options, draft, gov, sampled: bool = False):
@@ -106,9 +113,6 @@ class StreamingTranscriber:
         proposals per verify step), under this stream's acceptance governor:
         content the draft cannot predict would otherwise pay the
         below-break-even cost on every tick."""
-        from .parallel.mesh import refuse_on_mesh
-
-        refuse_on_mesh(model, "StreamingTranscriber")
         if agreement < 1:
             raise ValueError("agreement must be >= 1")
         self.model = model
@@ -118,7 +122,7 @@ class StreamingTranscriber:
         self.max_tokens_per_second = max_tokens_per_second
         self.vad_gate = vad_gate
         self.draft_model = draft_model
-        self._spec_gov = _governor(draft_model, spec_k, batch=1)
+        self._spec_gov = _governor(model, draft_model, spec_k, batch=1)
         self.opts = dict(
             task=task,
             language=language,
@@ -320,9 +324,6 @@ class MultiStreamTranscriber:
         """draft_model: speculative decoding for the batched tick decodes,
         under one tier-level acceptance governor (the batch mixes streams,
         so its evidence is the tier's)."""
-        from .parallel.mesh import refuse_on_mesh
-
-        refuse_on_mesh(model, "MultiStreamTranscriber")
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         self.model = model
@@ -331,7 +332,7 @@ class MultiStreamTranscriber:
         self.task = task
         self.spec_k = spec_k
         self.draft_model = draft_model
-        self._spec_gov = _governor(draft_model, spec_k, batch=n_streams)
+        self._spec_gov = _governor(model, draft_model, spec_k, batch=n_streams)
         self.streams = [
             StreamingTranscriber(
                 model, language=language, task=task, agreement=agreement,

@@ -19,6 +19,16 @@ that of the unpadded window. The batched core folds each layer's heads
 into one (B, T, S) accumulator and never holds every layer's weights.
 The DTW, the splits and the heuristics run on the host in numpy, as in
 JAX.
+
+Under a model axis (`parallel/`) each rank's forward holds only its heads,
+the contiguous block [r * H / m, (r + 1) * H / m) of the column-parallel
+q/k/v: a rank standardises and filters its own selected heads, the
+per-head sums are all-reduced over the model group (once per forward, and
+once for each host-side branch of a partial window), and the total is
+divided by the count of selected heads in the whole mask. A rank without
+a selected head joins each sum with zeros. The heads are never gathered;
+the text probabilities come from the replicated logits, so the DTW and the
+heuristics run alike on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import APPEND_PUNCTUATIONS, PREPEND_PUNCTUATIONS, WhisperConfig
 from .models import decoder as dec_mod
@@ -148,8 +159,33 @@ def _standardise(w: torch.Tensor, tmask: torch.Tensor,
     return (w - mean) / (torch.sqrt(var) + 1e-8)
 
 
-def _head_index(heads: np.ndarray, device) -> List[torch.Tensor]:
+def _head_index(model, heads: np.ndarray, device) -> List[torch.Tensor]:
+    """Per layer, the selected heads among this rank's: the mask cut to the
+    rank's block of heads under a model axis."""
+    axis = model.decoder.axis
+    if axis is not None:
+        n = heads.shape[1] // axis.size
+        heads = heads[:, axis.rank * n:(axis.rank + 1) * n]
     return [torch.as_tensor(np.nonzero(row)[0], device=device) for row in heads]
+
+
+def _sum_over_model(model, x: torch.Tensor) -> torch.Tensor:
+    """The model group's sum of each rank's fp32 per-head sums, in place
+    (x itself without a model axis)."""
+    axis = model.decoder.axis
+    if axis is not None:
+        dist.all_reduce(x, group=axis.group)
+    return x
+
+
+def _host_head_mean(model, per_head: np.ndarray, n_sel: int) -> np.ndarray:
+    """The mean over every rank's selected heads of a host array whose axis
+    0 holds this rank's (numpy's mean: the sum, then one division)."""
+    total = per_head.sum(axis=0)
+    if model.decoder.axis is not None:
+        t = _sum_over_model(model, torch.from_numpy(total).to(model.device))
+        total = t.cpu().numpy()
+    return total / n_sel
 
 
 def _alignment_core(model, tokens: torch.Tensor, audio_features: torch.Tensor,
@@ -159,7 +195,8 @@ def _alignment_core(model, tokens: torch.Tensor, audio_features: torch.Tensor,
     matrix (T_bucket, S), standardised selected heads (n_sel, T_bucket, S)
     for the host's tail fix). Heads are taken in (layer, head) order."""
     dev = tokens.device
-    index = _head_index(heads, dev)
+    t = tokens.shape[1]
+    index = _head_index(model, heads, dev)
     sel_parts: List[torch.Tensor] = []
 
     def visit(l, w):
@@ -169,12 +206,14 @@ def _alignment_core(model, tokens: torch.Tensor, audio_features: torch.Tensor,
     logits = _teacher_forced(model, tokens, audio_features, visit)
     probs = torch.softmax(logits[0], dim=-1)
     text_probs = probs[gather_pos, gather_ids]
-    sel = torch.cat(sel_parts)
-    tmask = (torch.arange(sel.shape[1], device=dev) < t_valid)[None, :, None]
+    sel = (torch.cat(sel_parts) if sel_parts else
+           torch.zeros((0, t, audio_features.shape[1]), device=dev))
+    tmask = (torch.arange(t, device=dev) < t_valid)[None, :, None]
     cnt = torch.full((1, 1, 1), float(max(t_valid, 1)), device=dev)
     sel = _standardise(sel, tmask, cnt)
-    matrix = _median_filter_dev(sel, medfilt_width).mean(dim=0)
-    return text_probs, matrix, sel
+    matrix = _sum_over_model(
+        model, _median_filter_dev(sel, medfilt_width).sum(dim=0))
+    return text_probs, matrix / max(1, int(heads.sum())), sel
 
 
 def _alignment_core_batch(model, tokens: torch.Tensor,
@@ -185,10 +224,11 @@ def _alignment_core_batch(model, tokens: torch.Tensor,
     (B, T_bucket), matrix (B, T_bucket, S)). Each layer's selected heads are
     standardised, filtered and summed into one (B, T, S) fp32 accumulator
     as the layer is reached: the peak is one layer's (B, H, T, S)
-    probabilities and the filter's temporaries."""
+    probabilities and the filter's temporaries. Under a model axis the
+    accumulator is summed over the group once, after the forward."""
     dev = tokens.device
     b, t = tokens.shape
-    index = _head_index(heads, dev)
+    index = _head_index(model, heads, dev)
     tmask = (torch.arange(t, device=dev)[None, :] < t_valid[:, None])[:, None, :, None]
     cnt = t_valid.clamp(min=1).float()[:, None, None, None]
     acc = torch.zeros((b, t, audio_features.shape[1]), dtype=torch.float32,
@@ -207,7 +247,7 @@ def _alignment_core_batch(model, tokens: torch.Tensor,
     rows = torch.arange(b, device=dev)[:, None]
     text_probs = probs[rows, gather_pos, gather_ids]
     n_sel = torch.full((1, 1, 1), float(max(1, int(heads.sum()))), device=dev)
-    return text_probs, acc / n_sel
+    return text_probs, _sum_over_model(model, acc) / n_sel
 
 
 def median_filter(x: np.ndarray, width: int) -> np.ndarray:
@@ -386,18 +426,20 @@ def find_word_alignment(
     matrix = matrix_d[:t_real, :n_audio].cpu().numpy()
 
     s_full = matrix_d.shape[-1]
+    n_sel = max(1, int(heads.sum()))
     if n_audio <= medfilt_width:
         # a window of 0.15 s or less: the host reference's median_filter
         # passes slices no wider than the filter through unfiltered, so the
         # matrix is the head mean of the standardised heads
-        matrix = sel_d[:, :, :n_audio].cpu().numpy().mean(axis=0)[:t_real]
+        matrix = _host_head_mean(model, sel_d[:, :, :n_audio].cpu().numpy(),
+                                 n_sel)[:t_real]
     elif n_audio < s_full:
         # the device filter reflects at S, the window ends at n_audio: the
         # last pad_w columns are filtered again on the host from a tail of
         # 2 * width columns, reflecting at n_audio
         lo = n_audio - min(2 * medfilt_width, n_audio)
         tail = sel_d[:, :, lo:n_audio].cpu().numpy()
-        tail_f = median_filter(tail, medfilt_width).mean(axis=0)
+        tail_f = _host_head_mean(model, median_filter(tail, medfilt_width), n_sel)
         matrix[:, n_audio - pad_w:n_audio] = tail_f[:t_real, -pad_w:]
 
     # the text rows only: no sot prompt, no final eot

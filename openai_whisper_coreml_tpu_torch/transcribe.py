@@ -199,10 +199,6 @@ def transcribe(
     """
     cfg = model.cfg
     mesh = getattr(model, "mesh", None)
-    if word_timestamps:
-        from .parallel.mesh import refuse_on_mesh
-
-        refuse_on_mesh(model, "word_timestamps=True")
     # one acceptance governor per call: long audio the draft cannot predict
     # would otherwise pay the below-break-even cost on every window. Under
     # a mesh it keeps its prior threshold: walls differ between ranks, and

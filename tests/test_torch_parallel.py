@@ -234,17 +234,17 @@ def test_speculative_greedy_equals_plain(ranks):
 
 def test_mesh_refusals(ranks):
     """Heads the model axis does not divide, and a pre-quantized checkpoint
-    with a mesh, raise (JAX's checks); word timestamps, the two stream
-    classes and the HTTP server raise NotImplementedError naming
-    ROADMAP.md (the next slice)."""
+    with a mesh, raise (JAX's checks). Word timestamps, the two stream
+    classes and the HTTP server run under a mesh
+    (test_torch_parallel_{words,stream,serve_http}.py)."""
     (_, n_model), results = ranks
     for res in results:
         errors = res["errors"]
         assert "pre-quantized" in errors["prequantized"]
         if n_model > 1:
             assert "must divide attention heads" in errors["heads"]
-        for name in ("words", "batch_words", "stream", "multistream", "server"):
-            assert "ROADMAP.md" in errors[name], name
+        else:
+            assert "heads" not in errors
 
 
 def test_long_form_transcribe_equals_one_process(ranks, setup):

@@ -223,11 +223,16 @@ def _main_server(monkeypatch, model, argv):
     (["--tensor-parallel", "2"], "parallel/"),
 ])
 def test_main_loads_draft_and_refuses_tensor_parallel(argv, what, model, monkeypatch):
-    """--tensor-parallel > 1 raises naming ROADMAP.md. --draft-model is
-    ported: the draft loads through load_model with the server's
-    quantisation, is checked against the target, and becomes model.draft."""
+    """--tensor-parallel > 1 outside a torchrun launch raises, saying how
+    to launch the server's ranks (the mesh server itself:
+    test_torch_parallel_serve_http.py). --draft-model is ported: the draft
+    loads through load_model with the server's quantisation, is checked
+    against the target, and becomes model.draft."""
     if what != "speculative.py":
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+        for name in ("WORLD_SIZE", "NUM_PROCESSES"):
+            monkeypatch.delenv(name, raising=False)
+        with pytest.raises(RuntimeError,
+                           match="torchrun.*openai_whisper_coreml_tpu_torch.serve_http"):
             tsh.main(argv)
         return
     srv, loads = _main_server(monkeypatch, model,

@@ -9,7 +9,6 @@ imports no JAX: the tests do that in the parent.
 
 from __future__ import annotations
 
-import datetime
 import os
 import queue
 import tempfile
@@ -36,15 +35,18 @@ TRANSCRIBE_KW = dict(language="en", temperature=0.0, sample_len=8,
                      compression_ratio_threshold=None)
 
 
-def spawn(world: int, fn, *args, timeout: float = JOIN_TIMEOUT_S) -> list:
-    """Run fn(*args) on `world` gloo ranks; every rank's result, by rank.
-    A rank that raises or does not finish within `timeout` fails the call;
+def spawn(world: int, fn, *args, timeout: float = JOIN_TIMEOUT_S,
+          pg_timeout_s: float = 120.0) -> list:
+    """Run fn(*args) on `world` gloo ranks whose process group times out
+    a collective after `pg_timeout_s`; every rank's result, by rank. A
+    rank that raises or does not finish within `timeout` fails the call;
     no child outlives it."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_entry, args=(r, world, store, fn, args, q),
+        procs = [ctx.Process(target=_entry,
+                             args=(r, world, store, fn, args, q, pg_timeout_s),
                              daemon=True) for r in range(world)]
         for p in procs:
             p.start()
@@ -71,12 +73,13 @@ def spawn(world: int, fn, *args, timeout: float = JOIN_TIMEOUT_S) -> list:
     return [results[r] for r in range(world)]
 
 
-def _entry(rank, world, store, fn, args, q):
+def _entry(rank, world, store, fn, args, q, pg_timeout_s):
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=f"file://{store}",
-                                rank=rank, world_size=world,
-                                timeout=datetime.timedelta(seconds=120))
+        from openai_whisper_coreml_tpu_torch.parallel import initialize_distributed
+
+        initialize_distributed(f"file://{store}", world, rank, backend="gloo",
+                               timeout_s=pg_timeout_s)
         try:
             q.put((rank, True, fn(*args)))
         finally:
@@ -225,22 +228,6 @@ def _infer_checks(mesh, data_dir: str) -> dict:
     out["transcribe"] = [s["tokens"] for s in serve.transcribe(
         audios[1], **TRANSCRIBE_KW)["segments"]]
 
-    from openai_whisper_coreml_tpu_torch.stream import (MultiStreamTranscriber,
-                                                         StreamingTranscriber)
-
-    from openai_whisper_coreml_tpu_torch.serve_http import WhisperHTTPServer
-
-    waits = {"words": lambda: serve.transcribe(audios[0], word_timestamps=True),
-             "server": lambda: WhisperHTTPServer(serve, port=0),
-             "batch_words": lambda: transcribe_batch(
-                 serve, audios[:1], ServeOptions(word_timestamps=True)),
-             "stream": lambda: StreamingTranscriber(serve),
-             "multistream": lambda: MultiStreamTranscriber(serve, 2)}
-    for name, call in waits.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            errors[name] = str(e)
     return out
 
 
@@ -412,3 +399,352 @@ def cli_run(argv) -> list:
     finally:
         pkg.load_model, writers.write_result = load, write_result
     return writes
+
+
+# -- word timestamps, streams and the HTTP server under a mesh ------------------
+
+# the alignment pass's checks: 4 heads (two a rank on a model axis of 2),
+# JAX's 64-position alignment geometry
+ALIGN_SIZE = dict(n_state=128, n_head=4, n_layer=2, n_audio_ctx=64, n_text_ctx=96)
+# every selected head on model rank 0 of 2: rank 1 joins each sum with zeros
+SPARSE_HEADS = [[0, 0], [1, 1]]
+WORDS_KW = dict(language="en", temperature=0.0, sample_len=8, word_timestamps=True,
+                no_speech_threshold=None, logprob_threshold=None,
+                compression_ratio_threshold=None)
+BATCH_WORDS_KW = dict(batch_size=2, language="en", temperature=(0.0,), sample_len=8,
+                      chunk_tokens=4, word_timestamps=True, no_speech_threshold=None,
+                      logprob_threshold=None, compression_ratio_threshold=None)
+ALIGN_FRAMES = (128, 100, 14, 8)  # full, the tail fix, n_audio == width, below
+
+
+def timings(ws) -> list:
+    return [(w.word, list(w.tokens), w.start, w.end, w.probability) for w in ws]
+
+
+def _heads_model(cfg, params, mesh, sparse: bool):
+    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
+    from openai_whisper_coreml_tpu_torch.timing import load_alignment_heads
+
+    heads = load_alignment_heads(SPARSE_HEADS, cfg) if sparse else None
+    return model_from_params(cfg, params, mesh=mesh, alignment_heads=heads)
+
+
+def words_checks(n_data: int, n_model: int, data_dir: str, full: bool) -> dict:
+    """Word timestamps on this rank: `transcribe` (with a
+    hallucination_silence_threshold too when `full`), `transcribe_batch`
+    under both schedulers, and `find_word_alignment` at each branch of a
+    window and `find_word_alignment_batch`, with the default heads and
+    (on a model axis) the sparse mask."""
+    from openai_whisper_coreml_tpu_torch import timing
+    from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+    from openai_whisper_coreml_tpu_torch.parallel import make_mesh
+    from openai_whisper_coreml_tpu_torch.serve import ServeOptions, transcribe_batch
+    from openai_whisper_coreml_tpu_torch.tokenizer import get_tokenizer
+
+    mesh = make_mesh(n_data, n_model)
+    masks = (False, True) if n_model > 1 else (False,)
+    cfg = tiny_test_config(**SERVE_SIZE)
+    params = _tree(os.path.join(data_dir, "serve_params.npz"))
+    acfg = tiny_test_config(**ALIGN_SIZE)
+    aparams = _tree(os.path.join(data_dir, "align_params.npz"))
+    with np.load(os.path.join(data_dir, "words_inputs.npz")) as f:
+        clip, clips = f["clip"], [f["b0"], f["b1"]]
+        feats = f["feats"]
+    tok = get_tokenizer(acfg, language="en")
+    text = tok.encode(" alpha beta gamma delta")
+    out = {}
+    for sparse in masks:
+        tag = "sparse" if sparse else "default"
+        model = _heads_model(cfg, params, mesh, sparse)
+        thresholds = (None, 0.5) if full and not sparse else (None,)
+        for thr in thresholds:
+            out[("transcribe", tag, thr)] = model.transcribe(
+                clip, hallucination_silence_threshold=thr, **WORDS_KW)
+        for scheduler in ("static", "continuous"):
+            out[("batch", tag, scheduler)] = transcribe_batch(
+                model, clips, ServeOptions(scheduler=scheduler, **BATCH_WORDS_KW))
+        amodel = _heads_model(acfg, aparams, mesh, sparse)
+        for frames in ALIGN_FRAMES:
+            out[("align", tag, frames)] = timings(timing.find_word_alignment(
+                amodel, tok, text, feats[:1], num_frames=frames))
+        jobs = [(text, feats[1], 128), (tok.encode(" one two three"), feats[2], 128),
+                (tok.encode(" x y"), feats[3], 40)]
+        out[("align_batch", tag)] = [timings(t) for t in timing.find_word_alignment_batch(
+            amodel, tok, jobs, language="en")]
+    return out
+
+
+STREAM_CASES = {  # test_torch_stream.py's StreamingTranscriber cases
+    "agreement-2": (8, dict(agreement=2, decode_interval=2.0, sample_len=6)),
+    "trim": (32, dict(agreement=1, decode_interval=4.0, sample_len=4)),
+}
+MULTI_KW = dict(n_streams=2, language="en", agreement=2, decode_interval=1.0,
+                sample_len=6)
+MULTI_PROMPT = [44, 45]  # stream 1's committed text
+
+
+def stream_events(evs) -> list:
+    return [(e.text, list(e.tokens), e.is_final) for e in evs]
+
+
+def run_stream(st, audio) -> list:
+    """1 s chunks, then finish: every event."""
+    sr = 16_000
+    out = []
+    for off in range(0, len(audio), sr):
+        out += stream_events(st.feed(audio[off:off + sr]))
+    return out + stream_events(st.finish())
+
+
+def run_multistream(mst, audios) -> dict:
+    """Two streams polled each second, then finished: their events."""
+    sr = 16_000
+    mst.streams[1]._prompt = list(MULTI_PROMPT)
+    out = {0: [], 1: []}
+    for off in range(0, max(len(a) for a in audios), sr):
+        for i, a in enumerate(audios):
+            if off < len(a):
+                mst.feed(i, a[off:off + sr])
+        for i, evs in mst.poll().items():
+            out[i] += stream_events(evs)
+    for i in out:
+        out[i] += stream_events(mst.finish(i))
+    return out
+
+
+def stream_checks(n_data: int, n_model: int, data_dir: str) -> dict:
+    """Both stream classes on this rank, plain and with the model as its
+    own draft."""
+    from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
+    from openai_whisper_coreml_tpu_torch.parallel import make_mesh
+    from openai_whisper_coreml_tpu_torch.stream import (MultiStreamTranscriber,
+                                                         StreamingTranscriber)
+
+    mesh = make_mesh(n_data, n_model)
+    model = model_from_params(tiny_test_config(**SERVE_SIZE),
+                              _tree(os.path.join(data_dir, "serve_params.npz")),
+                              mesh=mesh)
+    with np.load(os.path.join(data_dir, "stream_inputs.npz")) as f:
+        audio = {name: f[name] for name in STREAM_CASES}
+        multi = [f["m0"], f["m1"]]
+    out = {}
+    for name, (_, kw) in STREAM_CASES.items():
+        out[name] = run_stream(StreamingTranscriber(model, language="en", **kw),
+                               audio[name])
+    out["multi"] = run_multistream(MultiStreamTranscriber(model, **MULTI_KW), multi)
+    name = "agreement-2"
+    st = StreamingTranscriber(model, language="en", draft_model=model, spec_k=3,
+                              **STREAM_CASES[name][1])
+    out["draft"] = run_stream(st, audio[name])
+    out["draft_pinned"] = st._spec_gov.pinned
+    mst = MultiStreamTranscriber(model, draft_model=model, spec_k=3, **MULTI_KW)
+    out["multi_draft"] = run_multistream(mst, multi)
+    out["multi_draft_pinned"] = mst._spec_gov.pinned
+    return out
+
+
+# the HTTP server's: deterministic serving defaults for a random model
+SERVER_DEFAULTS = dict(language="en", sample_len=4, temperature=(0.0,),
+                       no_speech_threshold=None, logprob_threshold=None,
+                       compression_ratio_threshold=None)
+BAD_REQUESTS = (  # answered 400 before any model command
+    ("/transcribe?beam_size=x", "wav"),
+    ("/transcribe?word_timestamps=1&without_timestamps=1", "wav"),
+    ("/transcribe?temperature=hot", "wav"),
+    ("/stream?decode_interval=soon", "raw"),
+    ("/transcribe", "garbage"),
+)
+
+
+def wav_bytes(audio) -> bytes:
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16_000)
+        wf.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def _multipart(fields: dict, data: bytes):
+    bound = "whisperportboundary42"
+    body = b""
+    for k, vals in fields.items():
+        for v in (vals if isinstance(vals, list) else [vals]):
+            body += (f"--{bound}\r\nContent-Disposition: form-data; "
+                     f"name=\"{k}\"\r\n\r\n{v}\r\n").encode()
+    body += (f"--{bound}\r\nContent-Disposition: form-data; name=\"file\"; "
+             "filename=\"a.wav\"\r\nContent-Type: application/octet-stream\r\n\r\n"
+             ).encode() + data + b"\r\n" + f"--{bound}--\r\n".encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={bound}"}
+
+
+def http_exercise(port: int, clips, idle_s: float = 0.0, ops=None) -> dict:
+    """Every route of a server on 127.0.0.1:port, as a client sends them:
+    (status, body) per request, bodies parsed (JSON, NDJSON lines or
+    text). `ops`: the server's list of model commands, to count what the
+    bad requests sent; `idle_s`: an idle period before the last request."""
+    import json
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    def call(path, body=None, headers=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                     headers=headers or {},
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                status, ctype, raw = r.status, r.headers.get("Content-Type", ""), r.read()
+        except urllib.error.HTTPError as e:
+            status, ctype, raw = e.code, e.headers.get("Content-Type", ""), e.read()
+        text = raw.decode()
+        if "ndjson" in ctype:
+            return status, [json.loads(line) for line in text.splitlines()]
+        return status, json.loads(text) if "json" in ctype else text
+
+    def sent():
+        return 0 if ops is None else sum(op != "noop" for op in ops)
+
+    wavs = [wav_bytes(c) for c in clips]
+    out = {"healthz": call("/healthz"), "readyz": call("/readyz"),
+           "transcribe": call("/transcribe", wavs[0]),
+           "transcribe_words": call("/transcribe?word_timestamps=1", wavs[1])}
+    body, headers = _multipart({"model": "whisper-1", "response_format": "verbose_json",
+                                "timestamp_granularities[]": "word"}, wavs[0])
+    out["openai_verbose"] = call("/v1/audio/transcriptions", body, headers)
+    body, headers = _multipart({"model": "whisper-1", "response_format": "srt"}, wavs[1])
+    out["openai_srt"] = call("/v1/audio/transcriptions", body, headers)
+    out["detect"] = call("/detect", wavs[1])
+    raw = np.asarray(clips[1], np.float32).tobytes()
+    out["stream"] = call("/stream?decode_interval=1.0", raw, {"X-Raw-Audio": "1"})
+
+    pair = {}
+
+    def post(i):
+        pair[i] = call("/transcribe", wavs[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["concurrent"] = [pair[0], pair[1]]
+
+    before = sent()
+    payloads = {"wav": wavs[0], "raw": raw, "garbage": b"this is not audio"}
+    out["bad"] = [call(path, payloads[kind]) for path, kind in BAD_REQUESTS]
+    out["bad_sent"] = sent() - before
+    out["model_error"] = call("/transcribe?language=xx", wavs[0])
+    out["after_error"] = call("/transcribe", wavs[1])
+    time.sleep(idle_s)
+    out["after_idle"] = call("/transcribe", wavs[0])
+    out["metrics"] = call("/metrics")
+    return out
+
+
+def server_checks(n_data: int, n_model: int, data_dir: str, idle_s: float) -> dict:
+    """The mesh server: rank 0 serves on a free port and runs
+    `http_exercise` against itself, then stops; the other ranks follow.
+    Each rank returns the model commands it ran, in order."""
+    from openai_whisper_coreml_tpu_torch import serve_http
+    from openai_whisper_coreml_tpu_torch.config import tiny_test_config
+    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
+    from openai_whisper_coreml_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data, n_model)
+    model = model_from_params(tiny_test_config(**SERVE_SIZE),
+                              _tree(os.path.join(data_dir, "serve_params.npz")),
+                              mesh=mesh)
+    with np.load(os.path.join(data_dir, "server_inputs.npz")) as f:
+        clips = [f["c0"], f["c1"]]
+    ops = []
+    execute = serve_http._execute
+
+    def recording(model_, streams, cmd):
+        ops.append(cmd[0])
+        return execute(model_, streams, cmd)
+
+    serve_http._execute = recording
+    if dist.get_rank() != 0:
+        serve_http.follow(model)
+        return {"ops": ops}
+    srv = serve_http.WhisperHTTPServer(model, port=0, batch_size=2, batch_window_ms=20,
+                                       default_options=SERVER_DEFAULTS)
+    srv.start()
+    try:
+        out = http_exercise(srv.port, clips, idle_s, ops)
+    finally:
+        srv.stop()
+    out["ops"] = ops
+    out["heartbeat_s"] = srv.heartbeat_s
+    return out
+
+
+def server_main_run(argv) -> dict:
+    """serve_http.main(argv) on this rank with `cli_model` for load_model.
+    Rank 0 sends one /transcribe once its server is up, then interrupts
+    itself as Ctrl-C would; main must return 0 on every rank."""
+    import json
+    import signal
+    import threading
+    import urllib.request
+
+    import openai_whisper_coreml_tpu_torch as pkg
+    from openai_whisper_coreml_tpu_torch import serve_http
+
+    out = {}
+    started = threading.Event()
+    start = serve_http.WhisperHTTPServer.start
+
+    def recording_start(self):
+        start(self)
+        out["port"] = self.port
+        started.set()
+
+    def client():
+        assert started.wait(120)
+        q = ("language=en&temperature=0&no_speech_threshold=none"
+             "&logprob_threshold=none&compression_ratio_threshold=none")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{out['port']}/transcribe?{q}",
+            data=wav_bytes(0.1 * np.sin(np.arange(16_000) / 8.0)), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out["answer"] = (r.status, json.loads(r.read()))
+        os.kill(os.getpid(), signal.SIGINT)
+
+    load = pkg.load_model
+    pkg.load_model, serve_http.WhisperHTTPServer.start = cli_model, recording_start
+    try:
+        if dist.get_rank() == 0:
+            threading.Thread(target=client, daemon=True).start()
+        out["rc"] = serve_http.main(argv)
+    finally:
+        pkg.load_model, serve_http.WhisperHTTPServer.start = load, start
+    out["joined"] = dist.is_initialized()
+    return out
+
+
+def cli_capture(argv) -> tuple:
+    """cli.main(argv) on this rank with `cli_model` for load_model: (what
+    it printed to stdout, to stderr)."""
+    import contextlib
+    import io
+
+    import openai_whisper_coreml_tpu_torch as pkg
+    from openai_whisper_coreml_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    load = pkg.load_model
+    pkg.load_model = cli_model
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            assert cli.main(argv) == 0
+    finally:
+        pkg.load_model = load
+    return out.getvalue(), err.getvalue()
