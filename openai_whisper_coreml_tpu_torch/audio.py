@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .config import HOP_LENGTH, N_FFT, N_SAMPLES, SAMPLE_RATE
+from .utils.profiling import spanned
 
 __all__ = [
     "mel_filters",
@@ -117,6 +118,7 @@ def dft_matrices(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
 
 
+@spanned("mel")
 def log_mel_spectrogram(audio: Union[np.ndarray, torch.Tensor],
                         n_mels: int = 80) -> torch.Tensor:
     """Whisper log-mel spectrogram.

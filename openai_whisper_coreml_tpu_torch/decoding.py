@@ -37,6 +37,7 @@ import torch
 from .config import WhisperConfig
 from .models import decoder as dec_mod
 from .tokenizer import LANGUAGES, Tokenizer, get_tokenizer
+from .utils.profiling import annotate, spanned
 
 NEG_INF = -1e30
 
@@ -374,6 +375,7 @@ def greedy_decode_core(
 # Language identification
 # ---------------------------------------------------------------------------
 
+@spanned("lang_step")
 def _detect_language_core(decoder: dec_mod.TextDecoder,
                           audio_features: torch.Tensor):
     cfg = decoder.cfg
@@ -419,11 +421,12 @@ def detect_language(model, mel_or_features, *, from_features: bool = False):
         return [c for c, _ in pairs], [p for _, p in pairs]
     feats = x if from_features else model.encode(x)
     idx, probs = _detect_language_core(model.decoder, feats)
-    idx = idx.cpu().numpy()
-    probs = probs.cpu().numpy()
-    codes = [LANGUAGES[i] for i in idx]
-    prob_dicts = [{LANGUAGES[j]: float(p[j]) for j in range(cfg.n_langs)}
-                  for p in probs]
+    with annotate("lang_results"):
+        idx = idx.cpu().numpy()
+        probs = probs.cpu().numpy()
+        codes = [LANGUAGES[i] for i in idx]
+        prob_dicts = [{LANGUAGES[j]: float(p[j]) for j in range(cfg.n_langs)}
+                      for p in probs]
     return codes, prob_dicts
 
 

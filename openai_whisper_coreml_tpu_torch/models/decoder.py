@@ -47,6 +47,7 @@ from ..config import WhisperConfig
 from ..ops.sqa_int8 import LayerAttend, sqa_int8_layers
 from ..ops.sqa_self import sqa_self_layers
 from ..quantize import ieee_div
+from ..utils.profiling import spanned
 from .layers import (MLP, Attention, LayerNorm, fp32_product, frozen,
                      layer_norm, layer_slice, merge_heads, self_attention,
                      split_heads)
@@ -195,6 +196,7 @@ def dequantize_kv_column(x8: torch.Tensor, scale: torch.Tensor,
     return (x8.float() * scale).to(dtype)
 
 
+@spanned("cross_kv")
 def precompute_cross_kv(decoder: TextDecoder,
                         audio_features: torch.Tensor) -> CrossKV:
     """audio_features (B, S, n_state) -> stacked per-layer cross K/V."""
@@ -206,6 +208,7 @@ def precompute_cross_kv(decoder: TextDecoder,
     return CrossKV(torch.stack(ks), torch.stack(vs))
 
 
+@spanned("cross_kv")
 def precompute_cross_kv_int8(decoder: TextDecoder,
                              audio_features: torch.Tensor) -> QuantCrossKV:
     """Quantised variant of precompute_cross_kv (once per window)."""
@@ -337,6 +340,7 @@ def _cross_attn(blk: DecoderBlock, x: torch.Tensor,
     return p.out(merge_heads(out))
 
 
+@spanned("decode_step")
 def decode_step(
     decoder: TextDecoder,
     tokens: torch.Tensor,  # (B, T) int64 — T tokens starting at pos_offset

@@ -18,6 +18,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
+from ..utils.profiling import spanned
 from .layers import (MLP, Attention, LayerNorm, copy_to_model, frozen,
                      gather_model, gelu, layer_norm, layer_slice,
                      self_attention, sinusoids)
@@ -69,6 +70,7 @@ class AudioEncoder(nn.Module):
             for l in range(cfg.n_audio_layer))
         self.ln_post = LayerNorm(p["ln_post"])
 
+    @spanned("encoder")
     def forward(self, mel: torch.Tensor, *, flash: bool = True,
                 remat: bool = False) -> torch.Tensor:
         """mel (B, n_mels, 3000) -> audio features (B, 1500, n_audio_state),

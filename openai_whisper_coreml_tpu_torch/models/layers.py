@@ -32,6 +32,11 @@ goes through Megatron's pair of communication ops, written by hand as
 autograd Functions (`copy_to_model`, `reduce_from_model`); at inference
 they are a no-op and a plain in-place all-reduce. Without a mesh every
 module is the plain `Linear`: no collective, no extra op per call.
+
+With the port's spans on (`utils/profiling.spans_on`), every linear's
+epilogue is the span `linear.epilogue`, the int8 weight's cast
+`linear.weight_cast` and each norm `layer_norm`; off, each site costs one
+test of `profiling.SPANS`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..utils import profiling
+from ..utils.profiling import annotate
 
 
 def frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
@@ -206,6 +213,13 @@ class ParallelLinear(Linear):
             y = fp32_product(x, w)
         else:
             y = reduce_from_model(fp32_product(x, w), self.axis)
+        if not profiling.SPANS:
+            return self._epilogue(x, y, w)
+        with annotate("linear.epilogue"):
+            return self._epilogue(x, y, w)
+
+    def _epilogue(self, x: torch.Tensor, y: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
         if self.w_q is not None:
             y = y * self.scale
         if self.lora_a is not None:
@@ -232,7 +246,11 @@ def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     activations flattened to 2-D); elsewhere, and for fp32, the operands
     are upcast (a bf16 x bf16 product is exact in fp32; fp32 is left as
     it is)."""
-    w = w.to(x.dtype)
+    if w.dtype == torch.int8 and profiling.SPANS:
+        with annotate("linear.weight_cast"):
+            w = w.to(x.dtype)
+    else:
+        w = w.to(x.dtype)
     if not (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)):
         return x.float() @ w.float()
     x2d = x.reshape(-1, x.shape[-1])
@@ -301,6 +319,13 @@ class Attention(nn.Module):
 
 def layer_norm(x: torch.Tensor, p: LayerNorm, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in fp32, output cast back to the input dtype."""
+    if not profiling.SPANS:
+        return _layer_norm(x, p, eps)
+    with annotate("layer_norm"):
+        return _layer_norm(x, p, eps)
+
+
+def _layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
@@ -313,6 +338,13 @@ def linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
     scale, the LoRA bottleneck and the bias, added in fp32 before one cast
     to x's dtype."""
     y = fp32_product(x, p.w if p.w_q is None else p.w_q)
+    if not profiling.SPANS:
+        return _epilogue(x, y, p)
+    with annotate("linear.epilogue"):
+        return _epilogue(x, y, p)
+
+
+def _epilogue(x: torch.Tensor, y: torch.Tensor, p: Linear) -> torch.Tensor:
     if p.w_q is not None:
         y = y * p.scale
     if p.lora_a is not None:

@@ -36,6 +36,7 @@ graph; PyTorch runs eagerly), the word-timestamp encodes included.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -48,6 +49,7 @@ from . import speculative as spec_mod
 from .config import FRAMES_PER_SECOND, HOP_LENGTH, N_FRAMES, SAMPLE_RATE
 from .decoding import DecodingOptions, DecodingResult, decode
 from .transcribe import Segment, seek_advance, window_segment_spans
+from .utils.profiling import annotate, spanned
 
 log = logging.getLogger(__name__)
 
@@ -378,10 +380,12 @@ def _decode_window_batches(model, windows: List[_Window], options: ServeOptions,
             gov = (spec_governor(model, options)
                    if paired is not None and options.spec_fallback else None)
             opts = DecodingOptions(temperature=float(t), **rung)
-            res = spec_mod.governed_decode(
-                gov, paired if rung.get("beam_size") is None else None,
-                lambda d: decode(model, batch_mels, opts, draft=d),
-                sampled=float(t) > 0)
+            # a repair round: a rung above temperature 0
+            with annotate("fallback_round") if t > 0 else contextlib.nullcontext():
+                res = spec_mod.governed_decode(
+                    gov, paired if rung.get("beam_size") is None else None,
+                    lambda d: decode(model, batch_mels, opts, draft=d),
+                    sampled=float(t) > 0)
             still: List[int] = []
             for i in pending:
                 if _needs_fallback(res[i], options):
@@ -415,6 +419,7 @@ def _window_skipped(r: DecodingResult, options: ServeOptions) -> bool:
                      and r.avg_logprob > options.logprob_threshold))
 
 
+@spanned("reassemble")
 def _reassemble(model, arrays, chains, options, mels: List[torch.Tensor],
                 content: List[int]) -> List[Dict[str, Any]]:
     """Stitch each request's verified seek chain into one result.

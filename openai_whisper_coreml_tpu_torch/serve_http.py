@@ -267,7 +267,7 @@ class WhisperHTTPServer:
 
         while not self._stop.is_set():
             try:
-                first = self._queue.get(timeout=0.1)
+                first = self._take(timeout=0.1)
             except queue.Empty:
                 continue
             jobs = [first]
@@ -280,7 +280,7 @@ class WhisperHTTPServer:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         break
-                    jobs.append(self._queue.get(timeout=remaining))
+                    jobs.append(self._take(timeout=remaining))
             except queue.Empty:
                 pass
             jobs = [j for j in jobs if not j.cancelled]
@@ -325,6 +325,14 @@ class WhisperHTTPServer:
                 self.metrics.set_gauge("queue_depth", self._queue.qsize())
                 for j in group:
                     j.done.set()
+
+    def _take(self, timeout: float) -> _Job:
+        """The next queued job; its wait in the queue, from `submit` until
+        now, is observed as `queue_wait_s` (a request's latency is its
+        queue wait, the batch window and the batch's work)."""
+        job = self._queue.get(timeout=timeout)
+        self.metrics.observe("queue_wait_s", time.monotonic() - job.submitted)
+        return job
 
     def _spec_metrics(self, speculative, before: Dict[str, int]) -> None:
         """One batch's speculative counters and gauges: differences of

@@ -1,54 +1,84 @@
-"""Tracing / profiling utilities (port of `utils/profiling.py`).
+"""Spans and device traces (port of `utils/profiling.py`).
 
-Named stage timers aggregated into reports (RTFx per stage), and a context
-manager around `torch.profiler` for device-level traces (CPU ops and CUDA
-kernels) that TensorBoard's profiler plugin or Perfetto can read.
+A span names a region of the port's work in a torch.profiler trace: a
+`torch.profiler.record_function` range, on the same clock as the CUDA
+kernels and the runtime calls that launched them, so that each kernel can
+be given to the span that was open when it was launched. The trace is the
+span store; it is written out when the trace ends.
+
+Spans are off unless a `spans_on()` context is open. Off, `annotate`
+returns one shared no-op context and makes no `record_function`, and the
+sites that run several times a layer (the linears' and the norm's) test
+`SPANS` with a plain `if` and enter no context at all. `device_trace`
+(the CLI's `--profile-dir`) opens `spans_on`.
+
+The spans (PERF.md §3 names the metric each one serves):
+
+    mel               audio.log_mel_spectrogram
+    encoder           models/encoder.AudioEncoder.forward
+    layer_norm        models/layers.layer_norm
+    linear.weight_cast  the int8 weight's cast in models/layers.fp32_product
+    linear.epilogue   scale, LoRA term, bias and cast of every linear
+    cross_kv          models/decoder.precompute_cross_kv(_int8)
+    decode_step       models/decoder.decode_step
+    lang_step         decoding._detect_language_core
+    lang_results      decoding.detect_language's copies and dicts
+    fallback_round    each rung above temperature 0 in serve
+    reassemble        serve._reassemble
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import time
-from collections import defaultdict
-from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional
+import functools
+import threading
+from typing import Callable, Iterator, Optional, TypeVar
+
+import torch
+
+F = TypeVar("F", bound=Callable)
+
+SPANS = False  # True while a spans_on() context is open; set only there
+_OFF = contextlib.nullcontext()
+_open = 0  # spans_on() contexts open, across threads
+_open_lock = threading.Lock()
 
 
-@dataclass
-class StageTimer:
-    """Accumulates wall time + work units per named stage."""
+@contextlib.contextmanager
+def spans_on() -> Iterator[None]:
+    """Turn the port's spans on for the body (nested and concurrent
+    contexts count: spans stay on until the last one closes)."""
+    global SPANS, _open
+    with _open_lock:
+        _open += 1
+        SPANS = True
+    try:
+        yield
+    finally:
+        with _open_lock:
+            _open -= 1
+            SPANS = _open > 0
 
-    totals: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
-    counts: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
-    units: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
 
-    @contextlib.contextmanager
-    def stage(self, name: str, work_units: float = 0.0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-            self.units[name] += work_units
+def annotate(name: str):
+    """The span `name` when spans are on (a record_function range), else
+    one shared no-op context."""
+    if not SPANS:
+        return _OFF
+    return torch.profiler.record_function(name)
 
-    def report(self) -> Dict[str, Dict[str, float]]:
-        out: Dict[str, Dict[str, float]] = {}
-        for name, total in self.totals.items():
-            entry = {
-                "seconds": round(total, 4),
-                "calls": self.counts[name],
-                "mean_ms": round(1e3 * total / max(self.counts[name], 1), 3),
-            }
-            if self.units[name]:
-                entry["units_per_sec"] = round(self.units[name] / total, 2)
-            out[name] = entry
-        return out
 
-    def dump(self) -> str:
-        return json.dumps(self.report(), sort_keys=True)
+def spanned(name: str) -> Callable[[F], F]:
+    """Decorator: each call of the function is the span `name`."""
+    def wrap(fn: F) -> F:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not SPANS:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # torch.profiler drops records at the start of each trace, and the more
@@ -63,14 +93,14 @@ _MARKER_KERNELS = 1024
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str]) -> Iterator[None]:
     """torch.profiler trace of the CPU and, with a card, its CUDA kernels,
-    written into `logdir` as `<host>_<pid>.<ns>.pt.trace.json` (Chrome trace
-    format: TensorBoard's profiler plugin, Perfetto, chrome://tracing) when
-    logdir is set; no-op otherwise. On the card the trace opens with a
-    region of marker kernels, `device_trace_markers`."""
+    with the port's spans on, written into `logdir` as
+    `<host>_<pid>.<ns>.pt.trace.json` (Chrome trace format: TensorBoard's
+    profiler plugin, Perfetto, chrome://tracing) when logdir is set; no-op
+    otherwise. On the card the trace opens with a region of marker
+    kernels, `device_trace_markers`."""
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 tensorboard_trace_handler)
 
@@ -79,7 +109,7 @@ def device_trace(logdir: Optional[str]) -> Iterator[None]:
     if on_card:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
+                 on_trace_ready=tensorboard_trace_handler(logdir)), spans_on():
         if on_card:
             with record_function("device_trace_markers"):
                 marker = torch.zeros(1, device="cuda")
@@ -89,10 +119,3 @@ def device_trace(logdir: Optional[str]) -> Iterator[None]:
         yield
         if on_card:
             torch.cuda.synchronize()
-
-
-def annotate(name: str):
-    """Named region inside a device trace (torch.profiler.record_function)."""
-    import torch
-
-    return torch.profiler.record_function(name)

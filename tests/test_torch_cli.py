@@ -142,8 +142,8 @@ def test_cli_draft_profile_and_tensor_parallel_flags(flags, what, models, wav,
                                                      tmp_path, monkeypatch):
     """--tensor-parallel > 1 outside torchrun raises, saying how to launch
     it (a launch under torchrun is test_torch_parallel_train's). --profile-dir writes a
-    torch.profiler trace of the file's transcription (on the CPU here) and
-    leaves the transcript as it is. --draft-model loads the draft through
+    torch.profiler trace of the file's transcription (on the CPU here), with
+    the spans of its path, and leaves the transcript as it is. --draft-model loads the draft through
     load_model with the target's dtype and quantisation and
     --draft-checkpoint, and the file decodes speculatively to the plain
     run's transcript."""
@@ -172,6 +172,9 @@ def test_cli_draft_profile_and_tensor_parallel_flags(flags, what, models, wav,
         (trace,) = list(trace_dir.glob("*.pt.trace.json"))
         events = json.loads(trace.read_text())["traceEvents"]
         assert any(e.get("name") == "aten::mm" for e in events)
+        spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+        assert {"mel", "encoder", "layer_norm", "linear.epilogue", "cross_kv",
+                "decode_step"} <= spans, spans
         traced = json.loads((tmp_path / "traced" / "clip.json").read_text())
         assert traced["segments"] == plain["segments"]
         return

@@ -1,10 +1,10 @@
 """Wall time of the PyTorch port's batched greedy decode on one NVIDIA GPU.
 
-    python3 tools/torch_decode_time.py [--batch 4] [--tokens 224] [--runs 1]
+    python3 tools/torch_decode_time.py [--model large-v3] [--batch 4] [--tokens 224] [--runs 1]
 
-Builds large-v3 with random weights from seed 0 (bf16 activations, int8
-weights), makes the log-mel of a batch of 30 s noise windows, decodes a
-short warm-up, then times `WhisperModel.decode` with int8 cross-KV,
+Builds `--model` (large-v3 by default) with random weights from seed 0
+(bf16 activations, int8 weights), makes the log-mel of a batch of 30 s
+noise windows, decodes a short warm-up, then times `WhisperModel.decode` with int8 cross-KV,
 language "en", greedy, `--tokens` sampled tokens per row (the serve path
 of chip_smoke.py). Prints one JSON line per timed run: seconds, tokens
 per row, seconds per step, the card's name and power limit, and the file
@@ -28,6 +28,7 @@ import torch
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--model", default="large-v3")
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--tokens", type=int, default=224)
     parser.add_argument("--runs", type=int, default=1)
@@ -40,7 +41,7 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    model = wt.load_model("large-v3", dtype=torch.bfloat16, quantize="int8",
+    model = wt.load_model(args.model, dtype=torch.bfloat16, quantize="int8",
                           device="cuda")
     audio = (np.random.default_rng(0).standard_normal((args.batch, 480_000)) * 0.1
              ).astype(np.float32)
@@ -55,7 +56,7 @@ def main() -> int:
         seconds = time.perf_counter() - t
         steps = max(len(r.tokens) for r in results)
         print(json.dumps({"decode_s": seconds, "tokens_per_row": [len(r.tokens) for r in results],
-                          "s_per_step": seconds / steps, "card": card,
+                          "s_per_step": seconds / steps, "model": args.model, "card": card,
                           "package": wt.__file__}), flush=True)
     return 0
 
