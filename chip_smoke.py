@@ -44,6 +44,11 @@ Phases (each raises, so the script exits non-zero, on failure):
        JAX's inline-dequant oracle too, and at its 12288-column limit; its
        device times warm and cold with the split sweep, beside K6 on the
        same K/V;
+       the fused linear (`ops.fused_linear`, no TPU kernel: XLA fuses the
+       epilogue there) at large-v3's three (K, N) and 1500 and 96,000
+       rows, within one bf16 spacing of its plain version plus the fp32
+       sums' order bound and at least 90 % equal, timed at 96,000 rows
+       beside the plain version and the bf16 cuBLAS GEMM alone;
   4. fp32 parity on one tiny model (full 1500-position audio context, head
      dim 64), CPU against card: decode with bf16 and with int8 caches (K6
      on the card, inline dequantisation on the CPU), transcribe of 50 s,
@@ -189,7 +194,11 @@ steps are not single-token and launch none); in training
 one K1 launch per encoder layer and one K1-causal launch per decoder layer
 per forward, and as many again for each rematerialised recompute; with
 word timestamps one K1-causal launch per decoder layer per alignment
-forward (and K1 for each window encoded again). No main path runs K5: Whisper's attention never spans more than 1536 keys. K2 runs
+forward (and K1 for each window encoded again); one fused-linear launch
+per linear that `layers.takes_fused` sends to it, which must be all 6 of
+each encoder layer of a bf16 encode and both cross-K/V linears of each
+decoder layer of a bf16 precompute, and none of a single-token decode
+step. No main path runs K5: Whisper's attention never spans more than 1536 keys. K2 runs
 only in its probe chain, layers x steps per chain run. The server's paths
 are counted after their requests are done: the counters add up across the
 server's threads.
@@ -402,6 +411,75 @@ def check_flash(fa) -> dict:
             "tflops": flops / dev_ms / 1e9, "plain_ms": plain_ms,
             **bound(4 * b * t * h * d * 2, flops, "bf16"),
             "library_ms": library_ms, "library_device_ms": library_dev_ms}
+
+
+# large-v3's linears over audio frames: q, k, v, out and the cross-attention
+# K and V; fc1; fc2
+FUSED_SHAPES = {"qkv_out": (1280, 1280), "fc1": (1280, 5120), "fc2": (5120, 1280)}
+
+
+def check_fused_linear(fl) -> dict:
+    """The fused linear vs its plain version at large-v3's three (K, N), at
+    one window's 1500 rows and at 64 windows' 96,000, held as the card
+    tests hold it: within one bf16 spacing of the plain result plus the
+    bound of the fp32 sums' order, and at least 90 % of outputs equal.
+    Times at 96,000 rows: the kernel and the plain version (events,
+    alternated), their device times, the bf16 cuBLAS GEMM alone and the
+    bound; the record's times sum the three shapes, one call each."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {}
+    for name, (k, n) in FUSED_SHAPES.items():
+        for m in (1500, 96_000):
+            x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+            w = torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                              dtype=torch.int8).bfloat16()
+            scale = 0.01 * (1 + torch.rand(n, device="cuda", generator=g))
+            b = torch.randn(n, device="cuda", generator=g)
+            got = fl.fused_linear(x, w, scale, b).float()
+            want = fl.fused_linear_reference(x, w, scale, b).float()
+            spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+            # two fp32 summation orders of k terms differ by at most
+            # 2 k 2^-24 times the sum of the terms' magnitudes
+            order = 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs()) * scale
+            within = ((got - want).abs() / (spacing + order)).max().item()
+            equal = (got == want).float().mean().item()
+            log(f"fused_linear vs plain ({m}, {k}) x ({k}, {n}): worst difference "
+                f"{within:.3f} of its bound, {100 * equal:.3f} % equal")
+            if not (within <= 1 and equal >= 0.9 and torch.isfinite(got).all()):
+                raise AssertionError(f"fused_linear ({m}, {k}, {n}) disagrees with "
+                                     f"its plain version")
+            del got, want, spacing, order
+        kernel_ms, plain_ms, times = alternate(
+            lambda: fl.fused_linear_reference(x, w, scale, b),
+            lambda: fl.fused_linear(x, w, scale, b))
+        dev_ms = device_ms(lambda: fl.fused_linear(x, w, scale, b), "fused_linear_kernel")
+        plain_dev_ms = device_ms(lambda: fl.fused_linear_reference(x, w, scale, b), None)
+        library_ms, library_dev_ms = timed_cuda_ms(lambda: x @ w)
+        flops = 2 * m * k * n
+        nbytes = 2 * (m * k + k * n + m * n) + 8 * n
+        shapes[name] = {"m": m, "k": k, "n": n, "worst_of_bound": within,
+                        "equal_share": equal, "ms": kernel_ms, "device_ms": dev_ms,
+                        "tflops": flops / dev_ms / 1e9, "plain_ms": plain_ms,
+                        "plain_device_ms": plain_dev_ms, **bound(nbytes, flops, "bf16"),
+                        "library_ms": library_ms, "library_device_ms": library_dev_ms,
+                        "library_tflops": flops / library_dev_ms / 1e9}
+        log(f"fused_linear {name} (96000, {k}) x ({k}, {n}) on {card()}: kernel "
+            f"{kernel_ms:.4f} ms (device {dev_ms:.4f} ms, {shapes[name]['tflops']:.1f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms (device {plain_dev_ms:.4f} ms), bf16 "
+            f"cuBLAS {library_ms:.4f} ms (device {library_dev_ms:.4f} ms), bound "
+            f"{shapes[name]['bound_ms']:.4f} ms (runs: {times})")
+        del x, w
+        torch.cuda.empty_cache()
+    total = {key: sum(r[key] for r in shapes.values())
+             for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                         "library_ms", "library_device_ms")}
+    flops = sum(2 * r["m"] * r["k"] * r["n"] for r in shapes.values())
+    return {"name": "fused_linear", "tpu_kernel": None, "route": "cuda",
+            "source": "openai_whisper_coreml_tpu_torch/csrc/fused_linear.cu",
+            "replaces": None,
+            "worst_of_bound": max(r["worst_of_bound"] for r in shapes.values()),
+            **total, "tflops": flops / total["device_ms"] / 1e9,
+            "bound_by": "operations", "shapes": shapes}
 
 
 def causal_pairs(t: int) -> int:
@@ -1005,6 +1083,84 @@ def check_sqa_v3(sv, si) -> dict:
             "k6_same_kv_ms": k6_ms, "k6_same_kv_device_ms": k6_dev_ms}
 
 
+# `models.layers.linear` calls that `layers.takes_fused` sent to the fused
+# kernel, by thread: an encode, a cross-K/V precompute and a decode step are
+# held to their own calls (the server runs the model in its own thread)
+_FUSED = threading.local()
+
+
+def fused_so_far() -> int:
+    return getattr(_FUSED, "n", 0)
+
+
+@contextlib.contextmanager
+def expect_fused(want, what: str):
+    """The body's fused-linear calls in this thread must number `want`
+    (None: not checked)."""
+    before = fused_so_far()
+    yield
+    got = fused_so_far() - before
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: {got} linears took the fused kernel, "
+                             f"expected {want}")
+
+
+def fusable(linears, x: torch.Tensor, params) -> int | None:
+    """How many of `linears`, run over a window's audio frames (1500 rows or
+    a multiple), must take the fused kernel: every plain `Linear` (not the
+    mesh's `ParallelLinear`) without LoRA and with widths of a multiple of
+    8, when x is bf16 on the card; None where autograd tracks x or one of
+    `params` (the rule then depends on each linear's input)."""
+    from openai_whisper_coreml_tpu_torch.models import layers
+
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(t.requires_grad for t in params)):
+        return None
+    if not (x.is_cuda and x.dtype == torch.bfloat16):
+        return 0
+    return sum(type(m) is layers.Linear and m.lora_a is None
+               and all(d % 8 == 0 for d in (m.w if m.w_q is None else m.w_q).shape)
+               for m in linears)
+
+
+@contextlib.contextmanager
+def counting_fused(calls):
+    """Count the linears `models.layers.linear` sends to the fused kernel
+    (calls["fused_linears"], and by thread), and hold each cross-K/V
+    precompute to its two per decoder layer."""
+    from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+    from openai_whisper_coreml_tpu_torch.models import layers
+
+    linear = layers.linear
+    cross = {name: getattr(dec_mod, name)
+             for name in ("precompute_cross_kv", "precompute_cross_kv_int8")}
+
+    def counting_linear(x, p):
+        if layers.takes_fused(x, p):
+            _FUSED.n = fused_so_far() + 1
+            bump(calls, "fused_linears")
+        return linear(x, p)
+
+    def counting_cross(name):
+        def run(decoder, audio_features):
+            kv = [m for blk in decoder.blocks for m in (blk.cross_attn.k, blk.cross_attn.v)]
+            want = fusable(kv, audio_features, (t for m in kv for t in m.parameters()))
+            with expect_fused(want, name):
+                return cross[name](decoder, audio_features)
+        return run
+
+    calls.setdefault("fused_linears", 0)
+    layers.linear = counting_linear
+    for name in cross:
+        setattr(dec_mod, name, counting_cross(name))
+    try:
+        yield calls
+    finally:
+        layers.linear = linear
+        for name, fn in cross.items():
+            setattr(dec_mod, name, fn)
+
+
 @contextlib.contextmanager
 def counting_steps(calls):
     """Count decode_step calls with T == 1 by the caches they get: bf16
@@ -1016,7 +1172,16 @@ def counting_steps(calls):
 
     step = dec_mod.decode_step
 
+    from openai_whisper_coreml_tpu_torch.models import layers
+
     def counting_step(decoder, tokens, cross_kv, cache, *args, **kwargs):
+        if tokens.shape[1] == 1 and tokens.shape[0] < layers.FUSED_MIN_ROWS:
+            # a decode step's linears keep the unfused path
+            with expect_fused(0, "a single-token decode step"):
+                return counting_step_of(decoder, tokens, cross_kv, cache, *args, **kwargs)
+        return counting_step_of(decoder, tokens, cross_kv, cache, *args, **kwargs)
+
+    def counting_step_of(decoder, tokens, cross_kv, cache, *args, **kwargs):
         if tokens.shape[1] == 1:
             layers = len(decoder.blocks)
             bump(calls, "steps")
@@ -1699,9 +1864,12 @@ def read_counts(kernels) -> dict:
 @contextlib.contextmanager
 def main_path(name, kernels, idle=SERVING_IDLE):
     """Count the path's kernel launches from 0, its encoder layers, log-mel
-    calls and single-token decode steps; on exit check each kernel's count
-    against what the path ran, and that every kernel but those in `idle`
-    launched. A training path adds its flash layers to calls
+    calls, single-token decode steps and the linears sent to the fused
+    kernel; on exit check each kernel's count against what the path ran,
+    and that every kernel but those in `idle` launched. Meanwhile every
+    bf16 encode must run its 6 linears a layer through the fused kernel,
+    every bf16 cross-K/V precompute its 2 a decoder layer, and a decode
+    step none. A training path adds its flash layers to calls
     ("encoder_layers", "causal_layers") and its log-mel calls itself."""
     from openai_whisper_coreml_tpu_torch.models.whisper import WhisperModel
 
@@ -1715,7 +1883,13 @@ def main_path(name, kernels, idle=SERVING_IDLE):
     def counting_encode(self, mel):
         bump(calls, "encode")
         bump(calls, "encoder_layers", by=self.cfg.n_audio_layer)
-        return encode(self, mel)
+        enc = self.encoder
+        # every linear over the window's frames takes the fused kernel
+        want = fusable(enc.modules(), torch.empty(0, dtype=enc.conv1.w.dtype,
+                                                  device=enc.conv1.w.device),
+                       enc.parameters())
+        with expect_fused(want, "an encode"):
+            return encode(self, mel)
 
     def counting_log_mel(self, audio):
         bump(calls, "log_mel")
@@ -1732,7 +1906,7 @@ def main_path(name, kernels, idle=SERVING_IDLE):
     reset_counts(kernels)
     t = time.perf_counter()
     try:
-        with counting_steps(calls):
+        with counting_steps(calls), counting_fused(calls):
             yield calls
             torch.cuda.synchronize()
     finally:
@@ -1746,11 +1920,14 @@ def main_path(name, kernels, idle=SERVING_IDLE):
                 "log_mel": calls["log_mel"],
                 "sqa_self": calls["bf16_self_layers"],
                 "sqa_int8": calls["int8_self_layers"] + calls["int8_cross_layers"],
-                "sqa_v3": 0}
+                "sqa_v3": 0,
+                "fused_linear": calls["fused_linears"]}
     log(f"[{name}] {seconds:.3f} s wall on {card()}; calls {calls}; "
         f"launches {launches}, expected {expected}")
+    # the fused linear's count is held above and per encode, cross-K/V and
+    # decode step (an fp32 path launches none)
     if launches != expected or not all(n for k, n in launches.items()
-                                       if k not in idle):
+                                       if k not in idle and k != "fused_linear"):
         raise AssertionError(f"{name}: kernel launches {launches}, "
                              f"expected {expected}")
     for k, n in launches.items():
@@ -3159,6 +3336,7 @@ def kernel_counters() -> dict:
     """Name -> (wrapper module, its launch counter); K1, its causal mode and
     K5 are one CUDA kernel whose wrapper counts each mode apart."""
     from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
+    from openai_whisper_coreml_tpu_torch.ops import fused_linear as fl
     from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
     from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
     from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
@@ -3168,7 +3346,8 @@ def kernel_counters() -> dict:
             "flash_attention_causal": (fa, "launches_causal"),
             "flash_attention_online": (fa, "launches_online"),
             "log_mel": (mk, "launches"), "sqa_self": (ss, "launches"),
-            "sqa_int8": (si, "launches"), "sqa_v3": (sv, "launches")}
+            "sqa_int8": (si, "launches"), "sqa_v3": (sv, "launches"),
+            "fused_linear": (fl, "launches")}
 
 
 def param_bytes(model) -> int:
@@ -3801,6 +3980,7 @@ def main() -> int:
         return 1
     import openai_whisper_coreml_tpu_torch as wt
     from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
+    from openai_whisper_coreml_tpu_torch.ops import fused_linear as fl
     from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
     from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
     from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
@@ -3816,9 +3996,10 @@ def main() -> int:
 
     # by library name; K3 (ss), K6 (si) and K2 (sv) are entry points of one
     # library
-    build_kernels({"flash_attention": fa, "mel": mk, "sqa": sv})
+    build_kernels({"flash_attention": fa, "mel": mk, "sqa": sv, "fused_linear": fl})
     records = [check_flash(fa), *check_flash_causal(fa), check_mel(mk),
-               check_sqa_self(ss), check_sqa_int8(si), check_sqa_v3(sv, si)]
+               check_sqa_self(ss), check_sqa_int8(si), check_sqa_v3(sv, si),
+               check_fused_linear(fl)]
     check_flash_grad(fa)
     fp32_parity(wt, fa, mk, si)
     spec_parity(wt)

@@ -33,10 +33,17 @@ autograd Functions (`copy_to_model`, `reduce_from_model`); at inference
 they are a no-op and a plain in-place all-reduce. Without a mesh every
 module is the plain `Linear`: no collective, no extra op per call.
 
-With the port's spans on (`utils/profiling.spans_on`), every linear's
-epilogue is the span `linear.epilogue`, the int8 weight's cast
-`linear.weight_cast` and each norm `layer_norm`; off, each site costs one
-test of `profiling.SPANS`.
+A one-card bf16 linear over many rows (`takes_fused`: the encoder's and
+the cross-attention K/V's, not the decode step's) runs as one Hopper
+kernel, `ops.fused_linear`, whose epilogue applies the scale and the bias
+to the fp32 accumulators and casts once, so the fp32 product never
+reaches device memory; the others take the product and the epilogue
+apart, with the same rounding.
+
+With the port's spans on (`utils/profiling.spans_on`), every unfused
+linear's epilogue is the span `linear.epilogue`, every fused launch
+`linear.fused`, the int8 weight's cast `linear.weight_cast` and each norm
+`layer_norm`; off, each site costs one test of `profiling.SPANS`.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_linear import fused_linear
 from ..utils import profiling
 from ..utils.profiling import annotate
 
@@ -220,8 +228,7 @@ class ParallelLinear(Linear):
 
     def _epilogue(self, x: torch.Tensor, y: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
-        if self.w_q is not None:
-            y = y * self.scale
+        lora = None
         if self.lora_a is not None:
             a, b = self.lora_a, self.lora_b
             if self.mode == "col":
@@ -232,10 +239,9 @@ class ParallelLinear(Linear):
                 n = w.shape[0]
                 a = a[self.axis.rank * n:(self.axis.rank + 1) * n]
                 xa = reduce_from_model(fp32_product(x, a), self.axis)
-            y = y + fp32_product(xa.to(x.dtype), b)
-        if self.b is not None:
-            y = y + self.b.float()
-        return y.to(x.dtype)
+            lora = fp32_product(xa.to(x.dtype), b)
+        return scale_bias_cast(y, x.dtype, None if self.w_q is None else self.scale,
+                               self.b, lora)
 
 
 def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -246,11 +252,7 @@ def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     activations flattened to 2-D); elsewhere, and for fp32, the operands
     are upcast (a bf16 x bf16 product is exact in fp32; fp32 is left as
     it is)."""
-    if w.dtype == torch.int8 and profiling.SPANS:
-        with annotate("linear.weight_cast"):
-            w = w.to(x.dtype)
-    else:
-        w = w.to(x.dtype)
+    w = _cast_weight(w, x.dtype)
     if not (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)):
         return x.float() @ w.float()
     x2d = x.reshape(-1, x.shape[-1])
@@ -259,6 +261,15 @@ def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         y = torch.mm(x2d, w, out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """w in the activations' dtype; an int8 weight's cast is the span
+    `linear.weight_cast`."""
+    if w.dtype == torch.int8 and profiling.SPANS:
+        with annotate("linear.weight_cast"):
+            return w.to(dtype)
+    return w.to(dtype)
 
 
 class _Fp32Product(torch.autograd.Function):
@@ -333,10 +344,41 @@ def _layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
     return (y * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
+# Rows (x.numel() / K) from which a bf16 linear on the card takes the fused
+# kernel (`ops.fused_linear`). Measured on an H100 (PERF.md, device time
+# of every kernel a call launches, 64 to 3,000 rows): the kernel's 128-row
+# tiles leave most SMs idle at few rows, so the product and epilogue apart
+# are faster below the crossover, which lies between 768 and 1024 rows at
+# (K, N) = (1280, 1280), between 128 and 256 at (1280, 5120), and between
+# 1500 and 3000 at (5120, 1280); at 64 and 128 rows (a decode step) the
+# kernel takes 1.2 to 4.2 times as long. 1024 is the first row count at
+# which it wins for the encoder's q, k, v, out and fc1, and it admits every
+# linear over a window's 1500 audio frames (one window's fc2 loses 8 us,
+# its other linears gain about 100 us a layer).
+FUSED_MIN_ROWS = 1024
+
+
+def takes_fused(x: torch.Tensor, p: Linear) -> bool:
+    """Whether `linear(x, p)` runs as one `ops.fused_linear` launch: x is a
+    bf16 CUDA tensor of at least FUSED_MIN_ROWS rows, the layer has no
+    LoRA adapters, autograd needs no product, and the widths are multiples
+    of 8 (TMA's rule). Otherwise the product and the epilogue run apart."""
+    w = p.w if p.w_q is None else p.w_q
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and p.lora_a is None):
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, p.scale, p.b)):
+        return False
+    k, n = w.shape
+    return k % 8 == 0 and n % 8 == 0 and x.numel() // k >= FUSED_MIN_ROWS
+
+
 def linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
     """JAX's `linear`: the product in fp32, then (int8) the per-output-channel
     scale, the LoRA bottleneck and the bias, added in fp32 before one cast
-    to x's dtype."""
+    to x's dtype. Where `takes_fused` holds, one kernel does all of it."""
+    if takes_fused(x, p):
+        return _fused(x, p)
     y = fp32_product(x, p.w if p.w_q is None else p.w_q)
     if not profiling.SPANS:
         return _epilogue(x, y, p)
@@ -344,16 +386,42 @@ def linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
         return _epilogue(x, y, p)
 
 
+def _fused(x: torch.Tensor, p: Linear) -> torch.Tensor:
+    w = _cast_weight(p.w if p.w_q is None else p.w_q, x.dtype)
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    scale = None if p.scale is None else p.scale.reshape(-1)
+    b = None if p.b is None else p.b.float()
+    if not profiling.SPANS:
+        y = fused_linear(x2d, w, scale, b)
+    else:
+        with annotate("linear.fused"):
+            y = fused_linear(x2d, w, scale, b)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _epilogue(x: torch.Tensor, y: torch.Tensor, p: Linear) -> torch.Tensor:
-    if p.w_q is not None:
-        y = y * p.scale
+    lora = None
     if p.lora_a is not None:
         # the rank-r bottleneck, rounded to x's dtype as JAX rounds it
         xa = fp32_product(x, p.lora_a)
-        y = y + fp32_product(xa.to(x.dtype), p.lora_b)
-    if p.b is not None:
-        y = y + p.b.float()
-    return y.to(x.dtype)
+        lora = fp32_product(xa.to(x.dtype), p.lora_b)
+    return scale_bias_cast(y, x.dtype, None if p.w_q is None else p.scale, p.b, lora)
+
+
+def scale_bias_cast(y: torch.Tensor, dtype: torch.dtype,
+                    scale: Optional[torch.Tensor] = None,
+                    b: Optional[torch.Tensor] = None,
+                    lora: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The linear's epilogue on an fp32 product y, in JAX's order: `* scale`,
+    `+ lora` (the LoRA term, fp32), `+ b`, each in fp32, then one cast to
+    dtype. `ops.fused_linear`'s kernel does the same in its registers."""
+    if scale is not None:
+        y = y * scale
+    if lora is not None:
+        y = y + lora
+    if b is not None:
+        y = y + b.float()
+    return y.to(dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ The spans (PERF.md §3 names the metric each one serves):
     encoder           models/encoder.AudioEncoder.forward
     layer_norm        models/layers.layer_norm
     linear.weight_cast  the int8 weight's cast in models/layers.fp32_product
-    linear.epilogue   scale, LoRA term, bias and cast of every linear
+                      and before a fused linear
+    linear.epilogue   scale, LoRA term, bias and cast of every unfused linear
+    linear.fused      each launch of ops.fused_linear (models/layers.linear)
     cross_kv          models/decoder.precompute_cross_kv(_int8)
     decode_step       models/decoder.decode_step
     lang_step         decoding._detect_language_core

@@ -1,6 +1,6 @@
 """The Hopper kernels (flash attention, log-mel, decode self-attention K3,
-int8 single-query attention K6, int8 x int8 cross-attention K2) against
-their plain versions, on the card (the log-mel also against the fp64
+int8 single-query attention K6, int8 x int8 cross-attention K2, the fused
+linear) against their plain versions, on the card (the log-mel also against the fp64
 oracle of tests/oracles.py).
 
 These tests need an NVIDIA GPU and nvcc, and skip elsewhere. The file
@@ -19,8 +19,10 @@ from openai_whisper_coreml_tpu_torch import audio as taudio
 from openai_whisper_coreml_tpu_torch import quantize as tq
 from openai_whisper_coreml_tpu_torch.config import tiny_test_config
 from openai_whisper_coreml_tpu_torch.models import decoder as dec_mod
+from openai_whisper_coreml_tpu_torch.models import layers
 from openai_whisper_coreml_tpu_torch.models.whisper import build_model
 from openai_whisper_coreml_tpu_torch.ops import flash_attention as fa
+from openai_whisper_coreml_tpu_torch.ops import fused_linear as fl
 from openai_whisper_coreml_tpu_torch.ops import mel_kernel as mk
 from openai_whisper_coreml_tpu_torch.ops import sqa_int8 as si
 from openai_whisper_coreml_tpu_torch.ops import sqa_self as ss
@@ -955,3 +957,142 @@ def test_device_trace_records_the_flash_kernel_on_card(tmp_path):
     assert sum("fa_fwd_bf16_kernel" in k for k in kernels) == 2, sorted(set(kernels))
     assert any("log_mel_kernel" in k for k in kernels), sorted(set(kernels))
     assert any(e.get("name") == "encode_window" for e in events)
+
+
+def _fused_operands(m, k, n, seed, integer):
+    """bf16 x (m, k), int8 codes cast to bf16 w (k, n), an fp32 scale and
+    bias. Integer x keeps every fp32 sum exact (|sum| < 2^24) whatever its
+    order, so the kernel must give the plain version's bits."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if integer:
+        x = torch.randint(-8, 9, (m, k), device="cuda", generator=g).bfloat16()
+    else:
+        x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    w = torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                      dtype=torch.int8).bfloat16()
+    scale = 0.01 * (1 + torch.rand(n, device="cuda", generator=g))
+    b = torch.randn(n, device="cuda", generator=g)
+    return x, w, scale, b
+
+
+def _check_fused(x, w, scale, b):
+    before = fl.launches
+    out = fl.fused_linear(x, w, scale, b)
+    torch.cuda.synchronize()
+    assert fl.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (x.shape[0], w.shape[1])
+    return out, fl.fused_linear_reference(x, w, scale, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("scale", [True, False])
+@pytest.mark.parametrize("k,n", [(1280, 1280), (1280, 5120), (5120, 1280)])
+@pytest.mark.parametrize("m", [3000, 1537, 1500])
+def test_fused_linear_matches_plain_version_on_card(m, k, n, scale, bias):
+    """Held as `test_bf16_linear_rounds_once_as_jax` holds the plain path:
+    within one bf16 spacing of the plain result where the fp32 sums can
+    only differ in order (beyond it only by that order's own bound, near
+    a zero result), and at least 90 % of outputs equal; with integer x,
+    whose sums are exact, every bit equal."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for integer in (True, False):
+        x, w, s, b = _fused_operands(m, k, n, m + k + n, integer)
+        s, b = (s if scale else None), (b if bias else None)
+        out, ref = _check_fused(x, w, s, b)
+        if integer:
+            assert torch.equal(out, ref)
+            continue
+        got, want = out.float(), ref.float()
+        spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        # two fp32 summation orders of k terms differ by at most 2 k 2^-24
+        # times the sum of the terms' magnitudes
+        order = 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
+        if s is not None:
+            order = order * s
+        assert ((got - want).abs() <= spacing + order).all()
+        assert (got == want).float().mean().item() >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1500, 384, 384), (1500, 128, 128), (1000, 200, 136),
+                                   (129, 64, 264)])
+def test_fused_linear_at_ragged_widths_on_card(m, k, n):
+    """Widths that leave a tile's boxes past N, a k-block past K and rows
+    past M (zero-filled on load, clipped on store): the plain version's
+    bits on exact sums."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    x, w, s, b = _fused_operands(m, k, n, 7, integer=True)
+    out, ref = _check_fused(x, w, s, b)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_fused_linear_two_launches_give_the_same_bits_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    x, w, s, b = _fused_operands(3000, 1280, 5120, 8, integer=False)
+    first = fl.fused_linear(x, w, s, b)
+    second = fl.fused_linear(x, w, s, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_fused_linear_rejects_what_it_does_not_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    x, w, s, b = _fused_operands(256, 128, 128, 9, integer=True)
+    before = fl.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_linear(torch.cat([x, x], 1)[:, :128], w, s, b)
+    with pytest.raises(TypeError, match="bf16"):
+        fl.fused_linear(x.half(), w, s, b)
+    with pytest.raises(TypeError, match="bf16"):
+        fl.fused_linear(x, w.float(), s, b)
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        fl.fused_linear(x, w[:64], s, b)
+    with pytest.raises(ValueError, match="scale must be fp32"):
+        fl.fused_linear(x, w, s[:64], b)
+    with pytest.raises(ValueError, match="b must be fp32"):
+        fl.fused_linear(x, w, s, b.bfloat16())
+    assert fl.launches == before
+    # the kernel refuses widths off TMA's rule itself, before any launch
+    out = torch.empty(256, 128, dtype=torch.bfloat16, device="cuda")
+    err = fl.load_kernel().whisper_fused_linear_bf16(
+        x.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), 256, 124, 128, None)
+    assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+def test_fused_linear_launch_counts_on_card(monkeypatch):
+    """One encode of a window and its cross-attention K/V launch the
+    kernel once per linear: 6 a block, 2 a decoder layer; a decode step
+    launches none (its rows are below the threshold). The encoder's
+    features equal the unfused path's up to the fp32 sums' order."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    cfg = tiny_test_config(n_state=128, n_head=2, n_layer=2)
+    model = build_model(cfg, dtype=torch.bfloat16, seed=0, quantize="int8", device="cuda")
+    audio = (np.random.default_rng(2).standard_normal((2, 480_000)) * 0.1).astype(np.float32)
+    mel = model.log_mel(audio)
+    before = fl.launches
+    feats = model.encoder(mel)
+    cross = dec_mod.precompute_cross_kv_int8(model.decoder, feats)
+    torch.cuda.synchronize()
+    assert fl.launches - before == 6 * cfg.n_audio_layer + 2 * cfg.n_text_layer
+    cache = dec_mod.init_cache(cfg, 2, torch.bfloat16, "cuda", ctx=16, cache_dtype="int8")
+    toks = torch.randint(0, cfg.timestamp_begin, (2, 1), device="cuda")
+    before = fl.launches
+    dec_mod.decode_step(model.decoder, toks, cross, cache, 0)
+    torch.cuda.synchronize()
+    assert fl.launches == before
+    monkeypatch.setattr(layers, "FUSED_MIN_ROWS", 10 ** 9)
+    before = fl.launches
+    plain = model.encoder(mel)
+    assert fl.launches == before
+    err = (feats.float() - plain.float()).abs()
+    assert err.mean().item() <= 1e-2 * plain.float().abs().mean().item()
