@@ -6,10 +6,12 @@ program's place) on some of them, in one process.
         --seeds 11,12,... --control-seeds 11,12,13
 
 Each seed runs the cell as `run.py` does (its own weights, inputs, set-up
-and a window of `--seconds`, without a trace), then judges what it served;
-on a control seed the control's gap is read on the same prompts and
-tokens. One JSON line a seed, then the largest of each number over the
-seeds and the smallest control gap."""
+and a window of `--seconds`, without a trace), then has the configuration's
+family judge what it served; on a control seed the control's gap is read
+on the same prompts and tokens (`served_gap`'s for `v3-decode-b128` and
+the transcription cells, `lang_gap`'s for `v3-langid`). One JSON line a
+seed, then the largest of each number over the seeds and the smallest
+control gap."""
 
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ class Ctx:
     cell: Dict[str, Any]  # workloads/<cell>.json
     config: Dict[str, Any]  # configs/<config>.json
     dims: Dict[str, int]
-    cfg: Any  # the program's WhisperConfig
+    cfg: Any  # the program's configuration object, whatever its family
     seed: int
     seconds: float
     trace: bool
@@ -52,7 +52,7 @@ class Outcome:
     failed: int
     e2e: Dict[str, float]  # end-to-end metrics by name
     answers: List[dict]  # what the program served, for the judge
-    kind: str  # "transcripts" or "languages"
+    kind: str  # what the family's judge reads: "transcripts", "languages", "windows", ...
     record: Optional[Record] = None  # for the per-layer readers (traced runs)
     close: Callable[[], None] = lambda: None  # frees what the program holds
     extra: Dict[str, Any] = field(default_factory=dict)  # the kind's own readings

@@ -3,8 +3,9 @@ the cell's file `workloads/<cell>.json` and its configuration's file
 `configs/<config>.json`, found by the names that `BENCHMARK.json` gives.
 
 A configuration file holds the published sizes under the names of the
-model card's `config.json`; `dims` turns them into the plain dictionary of
-sizes that the harness, the reference and the operation counts share."""
+model card's `config.json` and names its `family`; the family's `dims`
+(`families/<family>.py`) turns them into the plain dictionary of sizes
+that the harness, the reference and the operation counts share."""
 
 from __future__ import annotations
 
@@ -31,24 +32,6 @@ def config_file(name: str) -> Dict[str, Any]:
 
 def cell_file(name: str) -> Dict[str, Any]:
     return load_json(HERE / "workloads" / f"{name}.json")
-
-
-def dims(config: Dict[str, Any]) -> Dict[str, int]:
-    """The sizes of a configuration file, under the port's names."""
-    return {
-        "n_mels": config["num_mel_bins"],
-        "n_vocab": config["vocab_size"],
-        "n_audio_ctx": config["max_source_positions"],
-        "n_audio_state": config["d_model"],
-        "n_audio_head": config["encoder_attention_heads"],
-        "n_audio_layer": config["encoder_layers"],
-        "n_text_ctx": config["max_target_positions"],
-        "n_text_state": config["d_model"],
-        "n_text_head": config["decoder_attention_heads"],
-        "n_text_layer": config["decoder_layers"],
-        "n_ffn": config["encoder_ffn_dim"],
-        "n_langs": config["n_languages"],
-    }
 
 
 def metrics_for(bench: Dict[str, Any], section: str, cell: str) -> List[Dict[str, Any]]:

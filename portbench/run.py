@@ -6,12 +6,12 @@ The cell is an entry of `workloads` in BENCHMARK.json; its file
 `portbench/workloads/<cell>.json` names the configuration
 (`portbench/configs/<config>.json`), the traffic kind
 (`portbench/traffic/<kind>.py`), the traffic's parameters, the decoding
-options and the limits of the comparison. The run makes the weights on
-the card from the seed, hands them to the port
-(`models.whisper.model_from_params`, int8), makes the inputs and warms the
-cell's shapes (set-up), drives the entry for `--seconds` (the window),
-reads the memory peak, frees the program, and judges what it served with
-the plain reference (`portbench/reference/`). With `--trace 0` the result
+options and the limits of the comparison. The configuration's `family`
+(`portbench/families/<family>.py`) makes the weights on the card from the
+seed and builds the program from them; the run makes the inputs and warms
+the cell's shapes (set-up), drives the entry for `--seconds` (the window),
+reads the memory peak, frees the program, and has the family judge what it
+served with its plain reference (`portbench/reference/`). With `--trace 0` the result
 holds the cell's end-to-end metrics, with `--trace 1` its per-layer ones
 (`portbench/metrics/<metric>.py`) read from a traced slice. The last line
 of standard output is the result; the numbers compared, each with its
@@ -34,6 +34,7 @@ from pathlib import Path  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from portbench import families  # noqa: E402
 from portbench.lib import spec  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "openai_whisper_coreml_tpu")
@@ -44,18 +45,15 @@ def forbidden_modules() -> list:
     return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
 
-def program_config(config: dict, d: dict):
-    from openai_whisper_coreml_tpu_torch.config import WhisperConfig
-
-    if d["n_ffn"] != 4 * d["n_audio_state"]:
-        raise ValueError("the port's MLP is 4 x d_model wide")
-    return WhisperConfig(
-        name=config["name"], n_mels=d["n_mels"], n_vocab=d["n_vocab"],
-        n_audio_ctx=d["n_audio_ctx"], n_audio_state=d["n_audio_state"],
-        n_audio_head=d["n_audio_head"], n_audio_layer=d["n_audio_layer"],
-        n_text_ctx=d["n_text_ctx"], n_text_state=d["n_text_state"],
-        n_text_head=d["n_text_head"], n_text_layer=d["n_text_layer"],
-        n_langs=d["n_langs"], multilingual=True)
+def build_program(config: dict, seed: int, device):
+    """The configuration's sizes, and the program that its family builds
+    from the weights of `seed` on `device` (the weights themselves freed)."""
+    family = families.of(config)
+    d = family.dims(config)
+    params = family.make_params(d, seed, device, served_dtype(device))
+    model = family.program(config, d, params)
+    del params
+    return d, model
 
 
 def power_limit() -> str:
@@ -69,38 +67,10 @@ def power_limit() -> str:
 
 
 def judge_outcome(ctx, out, dtype, control: bool = False) -> dict:
-    """The numbers compared, each {"value", "limit"}, after the program is
-    freed: the reference is built from the same seeded weights, made
-    again. With `control`, also `control_gap` (no limit): the gap of the
-    tokens (or the log-probabilities) of the reference at 4 bits."""
-    import torch
-
-    from portbench.lib import judge, weights
-    from portbench.reference import model as refm
-
-    d, cell = ctx.dims, ctx.cell
-    refm.exact_float32()
-    params = weights.make_params(d, ctx.seed, ctx.device, dtype)
-    ref = refm.Reference(params, d, weight_bits=8)
-    ctl = refm.Reference(params, d, weight_bits=4) if control else None
-    del params
-    with torch.no_grad():
-        if out.kind == "transcripts":
-            numbers = judge.answer_checks(out.answers)
-            chosen = judge.picks(out.answers, ctx.seed, cell["check"]["others"])
-            gaps = judge.transcript_gaps(ref, d, out.answers, chosen,
-                                         cell["options"]["sample_len"], ctx.device, ctl)
-            numbers["served_gap"] = gaps["served_gap"]
-            ctx.log(f"teacher-forced {len(chosen)} windows, {gaps['tokens']} served tokens")
-        else:
-            gaps = judge.language_gaps(ref, d, out.answers, ctx.device, ctl)
-            numbers = {"missing": gaps["missing"] + out.failed, "lang_gap": gaps["lang_gap"]}
-            ctx.log(f"compared {len(out.answers)} windows' language log-probabilities")
-    limits = cell["check"]["limits"]
-    checks = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
-    if control:
-        checks["control_gap"] = {"value": gaps["control_gap"], "limit": None}
-    return checks
+    """The numbers compared, each {"value", "limit"}, as the family of the
+    cell's configuration reads them after the program is freed; with
+    `control`, also `control_gap` (no limit)."""
+    return families.of(ctx.config).judge(ctx, out, dtype, control)
 
 
 def serve_cell(name: str, seed: int, seconds: float, trace: bool, device, *,
@@ -110,21 +80,14 @@ def serve_cell(name: str, seed: int, seconds: float, trace: bool, device, *,
     files (tests)."""
     import torch
 
-    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
-
-    from portbench.lib import weights
     from portbench.lib.cell import Ctx
 
     t_start = T_START if t_start is None else t_start
     cell = cell or spec.cell_file(name)
     config = config or spec.config_file(cell["config"])
-    d = spec.dims(config)
     cuda = device.type == "cuda"
-    cfg = program_config(config, d)
-    params = weights.make_params(d, seed, device, served_dtype(device))
-    model = model_from_params(cfg, params, quantize=config["dtypes"]["weights"])
-    del params
-    ctx = Ctx(cell=cell, config=config, dims=d, cfg=cfg, seed=seed, seconds=seconds,
+    d, model = build_program(config, seed, device)
+    ctx = Ctx(cell=cell, config=config, dims=d, cfg=model.cfg, seed=seed, seconds=seconds,
               trace=trace, device=device, model=model)
     kind = importlib.import_module(f"portbench.traffic.{cell['traffic']}")
     if cuda:

@@ -26,7 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from portbench import run  # noqa: E402
 from portbench.lib import spans as sp  # noqa: E402
-from portbench.lib import spec, trace, weights  # noqa: E402
+from portbench.lib import spec, trace  # noqa: E402
 from portbench.lib.cell import Ctx  # noqa: E402
 
 
@@ -38,7 +38,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
     from openai_whisper_coreml_tpu_torch.utils import profiling
 
     from portbench.traffic import langid_batches as kind
@@ -56,12 +55,8 @@ def main(argv=None) -> int:
         print(f"{args.workload} is no language-ID cell", file=sys.stderr)
         return 2
     config = spec.config_file(cell["config"])
-    d = spec.dims(config)
-    cfg = run.program_config(config, d)
-    params = weights.make_params(d, args.seed, device, torch.bfloat16)
-    model = model_from_params(cfg, params, quantize=config["dtypes"]["weights"])
-    del params
-    ctx = Ctx(cell=cell, config=config, dims=d, cfg=cfg, seed=args.seed, seconds=0.0,
+    d, model = run.build_program(config, args.seed, device)
+    ctx = Ctx(cell=cell, config=config, dims=d, cfg=model.cfg, seed=args.seed, seconds=0.0,
               trace=True, device=device, model=model)
     n = ctx.params["traced_calls"]
     windows = n * ctx.params["windows_per_call"]

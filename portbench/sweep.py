@@ -25,7 +25,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from portbench import run  # noqa: E402
-from portbench.lib import spec, weights  # noqa: E402
+from portbench.lib import spec  # noqa: E402
 from portbench.lib.cell import Ctx  # noqa: E402
 
 
@@ -38,8 +38,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
-
     from portbench.traffic import http_open_loop as kind
 
     if not torch.cuda.is_available():
@@ -48,15 +46,11 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     cell = spec.cell_file(args.workload)
     config = spec.config_file(cell["config"])
-    d = spec.dims(config)
-    cfg = run.program_config(config, d)
-    params = weights.make_params(d, args.seed, device, torch.bfloat16)
-    model = model_from_params(cfg, params, quantize=config["dtypes"]["weights"])
-    del params
+    d, model = run.build_program(config, args.seed, device)
     for rate in (float(r) for r in args.rates.split(",")):
         c = copy.deepcopy(cell)
         c["params"]["rate"] = rate
-        ctx = Ctx(cell=c, config=config, dims=d, cfg=cfg, seed=args.seed,
+        ctx = Ctx(cell=c, config=config, dims=d, cfg=model.cfg, seed=args.seed,
                   seconds=args.seconds, trace=False, device=device, model=model)
         with torch.no_grad():
             state = kind.setup(ctx)

@@ -11,7 +11,7 @@ import pytest
 from portbench.lib import spec
 
 TINY = {
-    "name": "tiny", "source": "test", "d_model": 64, "encoder_layers": 2,
+    "name": "tiny", "source": "test", "family": "whisper", "d_model": 64, "encoder_layers": 2,
     "encoder_attention_heads": 2, "encoder_ffn_dim": 256, "decoder_layers": 2,
     "decoder_attention_heads": 2, "decoder_ffn_dim": 256, "num_mel_bins": 80,
     "vocab_size": 51865, "max_source_positions": 1500, "max_target_positions": 448,
@@ -39,6 +39,9 @@ def tiny_cell(name: str) -> dict:
     elif cell["traffic"] == "http_open_loop":
         p.update(rate=24.0, batch_size=4, warmup_batches=[2], warmup_sample_len=2,
                  wait_s=30.0, duration_s={"median": 4.0, "sigma": 0.5, "min": 2.0, "max": 8.0})
+        o.update(sample_len=6)
+    elif cell["traffic"] == "decode_batches":
+        p.update(windows_per_call=2, pool_calls=2, warmup_sample_len=2)
         o.update(sample_len=6)
     else:
         p.update(windows_per_call=2, pool_calls=2, traced_calls=1)

@@ -12,7 +12,8 @@ from portbench import run
 from portbench.lib import spec
 from portbench.tests.conftest import tiny_cell
 
-CELLS = ("v3-batch-long", "turbo-batch-long", "turbo-online-short", "v3-langid")
+CELLS = ("v3-batch-long", "turbo-batch-long", "turbo-online-short", "v3-langid",
+         "v3-decode-b128")
 
 
 def _run(name, config, seed=5, seconds=0.5):

@@ -30,23 +30,25 @@ import openai_whisper_coreml_tpu_torch.models.decoder as dec_mod
 import openai_whisper_coreml_tpu_torch.serve as serve
 from portbench import run
 from portbench.lib import spec
-from portbench.tests.conftest import WIDE, tiny_cell
+from portbench.tests.conftest import TINY, WIDE, tiny_cell
 
 TRANSCRIPTION = ("turbo-batch-long", "turbo-online-short")
+DECODE = ("v3-decode-b128",)
 TINY_LIMIT = 1e-3
 
 
 def _gap(name):
-    return "served_gap" if name in TRANSCRIPTION else "lang_gap"
+    limits = spec.cell_file(name)["check"]["limits"]
+    return "served_gap" if "served_gap" in limits else "lang_gap"
 
 
-def _run(name):
+def _run(name, limit=TINY_LIMIT, config=WIDE):
     cell = tiny_cell(name)
     cell["check"]["others"] = 1000  # every answer
     cell["check"]["windows"] = 1000
-    cell["check"]["limits"][_gap(name)] = TINY_LIMIT
+    cell["check"]["limits"][_gap(name)] = limit
     return run.run_cell(name, 2**32 + 11, 0.5, False, torch.device("cpu"), spec.benchmark(),
-                        cell=cell, config=copy.deepcopy(WIDE), t_start=0.0)
+                        cell=cell, config=copy.deepcopy(config), t_start=0.0)
 
 
 def _state_unchanged(monkeypatch):
@@ -76,6 +78,17 @@ def _token_altered(monkeypatch):
         return tok
 
     monkeypatch.setattr(decoding, "sample_tokens", altered)
+
+
+def _half_decode(monkeypatch):
+    original = decoding.decode
+
+    def half(model, mel, options=decoding.DecodingOptions(), **kw):
+        h = max(1, mel.shape[0] // 2)
+        results = original(model, mel[:h], options, **kw)
+        return results + [results[i % h] for i in range(mel.shape[0] - h)]
+
+    monkeypatch.setattr(decoding, "decode", half)
 
 
 def _answer_altered(monkeypatch):
@@ -110,6 +123,29 @@ def test_transcription_fault_is_not_correct(name, fault, monkeypatch):
     assert not result["correct"], result["checks"]
 
 
+@pytest.mark.parametrize("name", DECODE)
+@pytest.mark.parametrize("fault", [_state_unchanged, _half_decode, _token_altered],
+                         ids=["state_unchanged", "half_batch", "token_altered"])
+def test_decode_fault_is_not_correct(name, fault, monkeypatch):
+    fault(monkeypatch)
+    # at d_model 128 every window decodes the same tokens, so a window's
+    # answer copied to another is that window's right answer; at 64 they
+    # differ
+    result = _run(name, config=TINY if fault is _half_decode else WIDE)
+    assert not result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("name", DECODE)
+def test_altered_token_reads_above_the_cells_own_limit(name, monkeypatch):
+    """A token altered where it is produced reads a `served_gap` above the
+    cell's own limit, not only above this size's."""
+    limit = spec.cell_file(name)["check"]["limits"]["served_gap"]
+    _token_altered(monkeypatch)
+    result = _run(name, limit=limit)
+    assert result["checks"]["served_gap"]["value"] > limit
+    assert not result["correct"]
+
+
 @pytest.mark.parametrize("fault", [_answer_altered, _half_languages],
                          ids=["answer_altered", "half_batch"])
 def test_language_fault_is_not_correct(fault, monkeypatch):
@@ -118,7 +154,7 @@ def test_language_fault_is_not_correct(fault, monkeypatch):
     assert not result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("name", TRANSCRIPTION + ("v3-langid",))
+@pytest.mark.parametrize("name", TRANSCRIPTION + ("v3-langid",) + DECODE)
 def test_control_reads_wider_than_the_program_on_cpu(name):
     """The tiny cell's run, judged also with the 4-bit control: its gap is
     the wider (the program on the CPU computes in float32)."""

@@ -8,6 +8,7 @@ import re
 
 import pytest
 
+from portbench import families
 from portbench.lib import spec
 
 BENCH = spec.benchmark()
@@ -28,10 +29,32 @@ def test_config_file_parses(entry):
     assert set(entry) == {"name", "source", "file", "reduced", "why"}
     config = spec.load_json(spec.ROOT / entry["file"])
     assert config["name"] == entry["name"]
-    assert config["reduced"] == entry["reduced"] == []
-    d = spec.dims(config)
-    assert d["n_ffn"] == 4 * d["n_audio_state"]
+    assert config["reduced"] == entry["reduced"]
+    d = families.of(config).dims(config)
+    if config["family"] == "whisper":
+        assert config["reduced"] == []
+        assert d["n_ffn"] == 4 * d["n_audio_state"]
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
+
+
+CONFIG_FILES = sorted((spec.HERE / "configs").glob("*.json"))
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES, ids=lambda p: p.stem)
+def test_every_config_names_a_family_with_the_interface(path):
+    """Every configuration file, in BENCHMARK.json or kept out of it, names
+    a family whose module exists and has the four functions."""
+    family = spec.load_json(path)["family"]
+    assert NAME.match(family)
+    assert (spec.HERE / "families" / f"{family}.py").is_file()
+    mod = families.load(family)
+    for name in families.INTERFACE:
+        assert callable(getattr(mod, name))
+
+
+def test_a_family_without_the_interface_is_refused():
+    with pytest.raises(TypeError, match="lacks"):
+        families.load("__init__")
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda e: e["name"])

@@ -55,7 +55,8 @@ def test_a_run_process_loads_no_jax():
     before it prints its result)."""
     code = ("import sys; sys.path.insert(0, %r); from portbench import run, calibrate, sweep; "
             "import portbench.traffic.batch_queue, portbench.traffic.langid_batches, "
-            "portbench.traffic.http_open_loop, portbench.lib.judge; "
+            "portbench.traffic.http_open_loop, portbench.traffic.decode_batches, "
+            "portbench.families.whisper, portbench.lib.judge; "
             "import openai_whisper_coreml_tpu_torch.serve_http, "
             "openai_whisper_coreml_tpu_torch.models.whisper; print(run.forbidden_modules())"
             % str(ROOT))

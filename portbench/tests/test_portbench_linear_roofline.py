@@ -6,11 +6,13 @@ from __future__ import annotations
 
 import pytest
 
+from portbench import families
 from portbench.lib import spec
 from portbench.lib.readers import Record, load_reader
 from portbench.lib.trace import Kernel, SliceRecord
 
-D = spec.dims(spec.config_file("large-v3"))
+CONFIG = spec.config_file("large-v3")
+D = families.of(CONFIG).dims(CONFIG)
 K1 = "void fa_fwd_bf16_kernel<false>(CUtensorMap_st, CUtensorMap_st)"
 FUSED = ("void (anonymous namespace)::fused_linear_kernel(CUtensorMap_st, CUtensorMap_st, "
          "CUtensorMap_st, float const*, float const*, int, int, int)")

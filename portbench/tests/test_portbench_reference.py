@@ -11,10 +11,9 @@ import torch
 
 from openai_whisper_coreml_tpu_torch import audio as port_audio
 from openai_whisper_coreml_tpu_torch.decoding import detect_language
-from openai_whisper_coreml_tpu_torch.models.whisper import model_from_params
 from openai_whisper_coreml_tpu_torch.tokenizer import get_tokenizer
-from portbench import run
-from portbench.lib import signals, spec, weights
+from portbench.families import whisper
+from portbench.lib import signals, weights
 from portbench.reference import model as refm
 from portbench.reference import tokens as reft
 from portbench.tests.conftest import TINY, WIDE
@@ -22,9 +21,9 @@ from portbench.tests.conftest import TINY, WIDE
 
 @pytest.fixture(scope="module")
 def pair():
-    d = spec.dims(WIDE)
+    d = whisper.dims(WIDE)
     params = weights.make_params(d, 2**31 + 7, torch.device("cpu"), torch.float32)
-    model = model_from_params(run.program_config(WIDE, d), params, quantize="int8")
+    model = whisper.program(WIDE, d, params)
     return d, model, refm.Reference(params, d), refm.Reference(params, d, weight_bits=4)
 
 
@@ -99,7 +98,7 @@ def test_the_control_reads_wider_than_the_port(pair):
 
 
 def test_text_rule_matches_the_port():
-    cfg = run.program_config(TINY, spec.dims(TINY))
+    cfg = whisper.program_config(TINY, whisper.dims(TINY))
     tok = get_tokenizer(cfg, language="en")
     for toks in ([104, 105, 32, 300, 50000], [32, 32], [226, 130, 172, 65], []):
         port = tok.decode([t for t in toks if t < tok.eot])
