@@ -218,3 +218,91 @@ def tiny_test_config(
         n_text_head=n_head,
         n_text_layer=n_layer,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class UniMoEConfig:
+    """Static hyper-parameters of an audio language model built on a
+    Whisper encoder (Uni-MoE-2.0-Omni's audio path, `models/audio_lm.py`).
+
+    The Whisper encoder's `n_audio_*` widths and `n_mels`; a connector that
+    pools its 1500 frames to `audio_tokens` and projects them to `hidden`;
+    a Qwen2-style decoder of `n_layer` layers (GQA: `n_head` query heads
+    and `n_kv_head` key/value heads of `hidden / n_head`, RMSNorm, RoPE),
+    each with a mixture of experts: `n_experts` routed SwiGLU experts of
+    `expert_ffn` and `n_null_experts` null experts under a top-p router
+    (`top_p`, at most `top_k` picks), plus `n_shared` shared SwiGLU experts
+    of `shared_ffn` added with weight 1; an untied head over `n_vocab`.
+    """
+
+    name: str
+    n_mels: int
+    n_audio_ctx: int
+    n_audio_state: int
+    n_audio_head: int
+    n_audio_layer: int
+    audio_tokens: int
+    hidden: int
+    n_layer: int
+    n_head: int
+    n_kv_head: int
+    n_vocab: int
+    n_experts: int
+    n_null_experts: int
+    expert_ffn: int
+    top_p: float
+    top_k: int
+    n_shared: int
+    shared_ffn: int
+    rms_eps: float = 1e-6
+    rope_theta: float = 1e6
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.n_head
+
+    @property
+    def n_routes(self) -> int:
+        """The router's outputs: the routed experts, then the null ones."""
+        return self.n_experts + self.n_null_experts
+
+    @property
+    def encoder_config(self) -> WhisperConfig:
+        """The encoder's widths as a WhisperConfig (its text side a copy of
+        the audio side; only `models/encoder.AudioEncoder` reads it)."""
+        return WhisperConfig(
+            name=f"{self.name}.encoder", n_mels=self.n_mels, n_vocab=51866,
+            n_audio_ctx=self.n_audio_ctx, n_audio_state=self.n_audio_state,
+            n_audio_head=self.n_audio_head, n_audio_layer=self.n_audio_layer,
+            n_text_ctx=448, n_text_state=self.n_audio_state,
+            n_text_head=self.n_audio_head, n_text_layer=self.n_audio_layer, n_langs=100)
+
+    def validate(self) -> None:
+        assert self.hidden % self.n_head == 0 and self.n_head % self.n_kv_head == 0
+        assert self.head_dim % 2 == 0
+        assert 1 <= self.top_k <= self.n_routes and 0.0 < self.top_p <= 1.0
+        assert self.n_audio_state % self.n_audio_head == 0
+
+
+# HIT-TMG/Uni-MoE-2.0-Omni config.json: large-v3's encoder (128 mels, 32
+# layers at 1280), 200 audio tokens, 28 decoder layers at 3584.
+UNIMOE_CONFIGS = {
+    "uni-moe-2.0-omni": UniMoEConfig(
+        name="uni-moe-2.0-omni", n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
+        n_audio_head=20, n_audio_layer=32, audio_tokens=200, hidden=3584, n_layer=28,
+        n_head=28, n_kv_head=4, n_vocab=152064, n_experts=4, n_null_experts=1,
+        expert_ffn=18944, top_p=0.7, top_k=2, n_shared=2, shared_ffn=2368),
+}
+
+
+def tiny_unimoe_config() -> UniMoEConfig:
+    """A miniature audio LM for CPU tests: `tiny_test_config`'s encoder
+    (80 mels, 2 layers at 64), hidden 64 with 4 / 2 heads of 16, 2 layers,
+    4 experts of 96 and a null one, 2 shared of 32, a vocabulary of 512."""
+    enc = tiny_test_config()
+    return UniMoEConfig(name="tiny-unimoe", n_mels=enc.n_mels, n_audio_ctx=enc.n_audio_ctx,
+                        n_audio_state=enc.n_audio_state, n_audio_head=enc.n_audio_head,
+                        n_audio_layer=enc.n_audio_layer, audio_tokens=20, hidden=64,
+                        n_layer=2, n_head=4, n_kv_head=2, n_vocab=512, n_experts=4,
+                        n_null_experts=1, expert_ffn=96, top_p=0.7, top_k=2, n_shared=2,
+                        shared_ffn=32)

@@ -344,6 +344,51 @@ def _layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
     return (y * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """Qwen2's RMSNorm: x / sqrt(mean(x^2) + eps) * scale, no offset."""
+
+    def __init__(self, p: Mapping[str, torch.Tensor], eps: float):
+        super().__init__()
+        self.scale = frozen(p["scale"])
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return rms_norm(x, self, dtype)
+
+
+def rms_norm(x: torch.Tensor, p: RMSNorm, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMSNorm in fp32, cast once to `dtype` (the scale's dtype by default:
+    the activations' when the residual stream is kept in fp32)."""
+    if not profiling.SPANS:
+        return _rms_norm(x, p, dtype)
+    with annotate("rms_norm"):
+        return _rms_norm(x, p, dtype)
+
+
+def _rms_norm(x: torch.Tensor, p: RMSNorm, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + p.eps)
+    return (y * p.scale.float()).to(p.scale.dtype if dtype is None else dtype)
+
+
+class SwiGLU(nn.Module):
+    """down(silu(x @ gate) * (x @ up)), no biases; `gate_up` holds gate's
+    and up's columns side by side, (in, 2F), so one product makes both
+    (an int8 weight's scales are per column, so the pair quantizes as each
+    would alone). Through `linear`, so a product over many rows on the card
+    takes the fused kernel."""
+
+    def __init__(self, p: Mapping[str, Any]):
+        super().__init__()
+        self.gate_up = Linear(p["gate_up"])
+        self.down = Linear(p["down"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.gate_up(x)
+        f = h.shape[-1] // 2
+        return self.down(F.silu(h[..., :f]) * h[..., f:])
+
+
 # Rows (x.numel() / K) from which a bf16 linear on the card takes the fused
 # kernel (`ops.fused_linear`). Measured on an H100 (PERF.md, device time
 # of every kernel a call launches, 64 to 3,000 rows): the kernel's 128-row

@@ -27,6 +27,22 @@ The spans (PERF.md §3 names the metric each one serves):
     lang_results      decoding.detect_language's copies and dicts
     fallback_round    each rung above temperature 0 in serve
     reassemble        serve._reassemble
+
+The audio language model's (`models/audio_lm.py`, `models/moe.py`):
+
+    connector         the encoder's frames pooled and projected to tokens
+    rms_norm          models/layers.rms_norm
+    attention         the decoder's attention core: RoPE, the packed rows
+                      laid out (B, T), PyTorch's fused attention (no kernel
+                      of the port takes GQA at head dim 128) and back; its
+                      q/k/v and o linears are outside it
+    moe               models/moe.MoE.forward, inclusive of:
+    moe.router        the fp32 gate, softmax, top-p pick, the host's counts
+    moe.permute       the routed rows grouped by expert (sort and gather)
+    moe.experts       each held routed expert's SwiGLU on its rows
+    moe.shared        the shared experts on every row
+    moe.combine       the weighted scatter-add of the experts' rows
+    lm_head           the last rows' norm, the untied head, log-softmax
 """
 
 from __future__ import annotations
